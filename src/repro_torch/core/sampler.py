@@ -1,0 +1,107 @@
+"""Rollout samplers, WALL-E's N parallel sampler processors (port of the
+env sampler of ``repro/core/sampler.py``).
+
+One sampler sweeps a batched env ``horizon`` steps under the current policy.
+The reference's ``lax.scan`` becomes a Python loop and its per-instance
+``vmap`` a written-out batch dimension. Each sampler's carry holds its own
+``torch.Generator`` (sampler i seeded ``seed + i``), from which the loop
+draws the action noise and the reset candidates of every step; the step
+body also runs on injected noise and candidates, which tests use.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.envs.base import auto_reset_batch
+
+
+def batched_step(env) -> Callable:
+    """``step(state, actions, generator) -> (state', obs, rewards, dones)``:
+    the batched step + auto-reset the rollout loop takes
+    (``auto_reset_batch``). The reference looks up a ``VectorEnv``'s own
+    step here; in the port every env is batched, so both collection modes
+    take this one."""
+    return auto_reset_batch(env)
+
+
+def init_env_carry(env, seed: int, batch: int, device):
+    """``(env_state, obs, generator)`` for ``batch`` fresh instances, with
+    the sampler's generator seeded ``seed`` on ``device``."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    state, obs = env.reset(generator, batch, device)
+    return state, obs, generator
+
+
+def make_rollout_step(algo, env_step: Callable) -> Callable:
+    """The body of one rollout step:
+
+        step(params, env_state, obs, action_noise, *env_args)
+            -> (env_state', obs', out)
+
+    ``algo.act`` turns the noise into actions (+ per-step extras such as
+    the behaviour logp and values), then ``env_step(env_state, actions,
+    *env_args)`` takes the fused env step. With ``env.batch_step`` the env
+    args are the reset candidates ``(reset_state, reset_obs)`` and the step
+    is pure, so tests inject both; the rollout loop passes
+    ``batched_step(env)``, whose one arg is the generator the candidates
+    are drawn from. ``out`` holds this step's trajectory row."""
+
+    def step(params, env_state, obs, action_noise, *env_args):
+        actions, extras = algo.act(params, obs, action_noise)
+        env_state2, obs2, rewards, dones = env_step(env_state, actions,
+                                                    *env_args)
+        out = {"obs": obs, "actions": actions, "rewards": rewards,
+               "dones": dones, **extras}
+        return env_state2, obs2, out
+
+    return step
+
+
+def make_algo_rollout(algo, env, horizon: int) -> Callable:
+    """Build ``rollout(params, carry) -> (carry', traj)``.
+
+    Per step the loop draws the action noise from the carry's generator,
+    then ``batched_step`` draws one batch of reset candidates from it and
+    steps the env. ``traj`` tensors are time-major ``(T, B, ...)``;
+    ``algo.rollout_tail`` adds end-of-rollout values (the GAE bootstrap
+    ``last_value``)."""
+    step = make_rollout_step(algo, batched_step(env))
+
+    def rollout(params, carry):
+        env_state, obs, generator = carry
+        B, device = obs.shape[0], obs.device
+        rows = []
+        with torch.no_grad():
+            for _ in range(horizon):
+                noise = torch.randn((B, env.act_dim), generator=generator,
+                                    device=device)
+                env_state, obs, out = step(params, env_state, obs, noise,
+                                           generator)
+                rows.append(out)
+            traj = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+            traj.update(algo.rollout_tail(params, obs))
+        return (env_state, obs, generator), traj
+
+    return rollout
+
+
+def split_batch(global_batch: int, num_samplers: int) -> int:
+    """Per-sampler env batch (the paper divides 20000 samples across N).
+    Raises ``ValueError`` when the split is not exact."""
+    if num_samplers < 1:
+        raise ValueError(f"num_samplers={num_samplers} must be >= 1")
+    if global_batch < 1:
+        raise ValueError(f"global_batch={global_batch} must be >= 1")
+    if global_batch % num_samplers != 0:
+        lower = (global_batch // num_samplers) * num_samplers
+        upper = lower + num_samplers
+        raise ValueError(
+            f"global_batch={global_batch} is not divisible by "
+            f"num_samplers={num_samplers}; every sampler must get an "
+            f"equal env batch — adjust global_batch (nearest multiples: "
+            + (f"{lower} or {upper}" if lower >= num_samplers
+               else f"{upper}") + ")")
+    return global_batch // num_samplers

@@ -1,0 +1,202 @@
+"""One declarative spec, one entry point (port of ``repro/experiment.py``).
+
+    from repro_torch.experiment import ExperimentSpec, Schedule, run
+    result = run(ExperimentSpec(env="cheetah", algo="ppo"))       # on cuda
+    result = run(spec, device="cpu")                              # on the CPU
+
+``ExperimentSpec``/``Schedule`` keep the reference's fields and
+``to_dict``/``from_dict`` JSON, so a spec written by either package loads in
+the other. The device is an argument of ``build``/``run``, not a spec field:
+it defaults to ``cuda`` and, with no CUDA device, raises rather than run on
+the CPU unasked.
+
+Ported so far: runtime ``sync``, backend ``inline``, algo ``ppo``, buffer
+``fifo``, envs ``pendulum``/``cheetah``, with ``num_samplers × global_batch``
+or ``env_batch`` collection. Anything else is rejected with a message naming
+ROADMAP.md, never ignored.
+
+Matmuls run in full float32: ``build`` sets
+``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` to False (process-wide), as the
+reference's float32 math assumes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch import kernels as kernels_mod
+from repro_torch import registry
+from repro_torch.algos.api import make_train_step
+from repro_torch.core import sampler as sampler_mod
+from repro_torch.core.orchestrator import IterationLog, SyncRunner
+from repro_torch.envs.vector import VectorEnv
+
+RUNTIMES = ("sync",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """How much work, split how (the reference's fields, unchanged)."""
+    num_samplers: int = 4
+    global_batch: int = 16
+    horizon: int = 128
+    iterations: int = 10
+    seed: int = 0
+    chunk: Optional[int] = None
+    min_batches_per_update: int = 1
+    num_workers: Optional[int] = None
+    env_batch: Optional[int] = None
+    learner_devices: Optional[int] = None
+    learner_microbatches: int = 1
+    fsdp: bool = False
+    overlap: bool = False
+    learner_pods: int = 1
+    max_respawns: int = 3
+    min_workers: Optional[int] = None
+    max_workers: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """One experiment: registry names + plain data (the reference's
+    fields, unchanged)."""
+    env: str = "pendulum"
+    algo: str = "ppo"
+    backend: str = "inline"
+    runtime: str = "sync"
+    buffer: Optional[str] = None
+    kernels: str = "auto"
+    model: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    schedule: Schedule = dataclasses.field(default_factory=Schedule)
+    env_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    algo_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    buffer_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    staleness: Optional[Any] = None
+    faults: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ExperimentSpec":
+        d = dict(d)
+        sched = d.get("schedule", {})
+        if not isinstance(sched, Schedule):
+            d["schedule"] = Schedule(**sched)
+        return cls(**d)
+
+
+@dataclasses.dataclass
+class ExperimentResult:
+    spec: ExperimentSpec
+    logs: List[IterationLog]
+    runner: Any
+
+    @property
+    def params(self):
+        return self.runner.params
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means the CUDA device, which must exist; pass ``"cpu"`` to
+    run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; repro_torch runs on the GPU "
+                "by default — pass device='cpu' (--device cpu) to run on "
+                "the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md for the "
+        f"porting order (the JAX package repro runs it)")
+
+
+def _validate(spec: ExperimentSpec) -> None:
+    """Reject every choice this port cannot run yet, by name."""
+    if spec.runtime not in RUNTIMES:
+        raise _not_ported(f"runtime {spec.runtime!r}")
+    for kind, name in (("env", spec.env), ("algo", spec.algo),
+                       ("backend", spec.backend)):
+        if not registry.contains(kind, name):
+            raise _not_ported(f"{kind} {name!r} (ported: "
+                              f"{', '.join(registry.choices(kind))})")
+    if spec.buffer is not None and not registry.contains("buffer",
+                                                         spec.buffer):
+        raise _not_ported(f"buffer {spec.buffer!r}")
+    if spec.buffer_kwargs:
+        raise _not_ported("buffer_kwargs (replay buffers)")
+    staleness = spec.staleness
+    if isinstance(staleness, dict):
+        staleness = staleness.get("mode", "off")
+    if staleness not in (None, "off"):
+        raise _not_ported("staleness correction")
+    if spec.faults:
+        raise _not_ported("fault injection (process backend)")
+    sched = spec.schedule
+    if int(sched.learner_devices or 1) > 1 or sched.learner_microbatches > 1:
+        raise _not_ported("the sharded learner (learner_devices / "
+                          "learner_microbatches)")
+    if sched.fsdp or sched.learner_pods > 1:
+        raise _not_ported("fsdp / learner_pods")
+    if sched.overlap:
+        raise _not_ported("the overlap schedule")
+    if sched.min_workers is not None or sched.max_workers is not None:
+        raise _not_ported("elastic worker fleets")
+
+
+def build(spec: ExperimentSpec, device=None) -> SyncRunner:
+    """Resolve a spec into a runner on ``device`` (without driving it).
+
+    Params are drawn from a CPU generator seeded ``seed`` (so a seed gives
+    the same weights on every device); sampler i's carry from a generator
+    on ``device`` seeded ``seed + i``, or one carry seeded ``seed`` for
+    ``env_batch`` collection, as the reference derives its keys.
+    """
+    _validate(spec)
+    device = resolve_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sched = spec.schedule
+    env = registry.make("env", spec.env, **dict(spec.env_kwargs))
+    vector = sched.env_batch is not None
+    if vector:
+        env = VectorEnv(env, sched.env_batch)
+    algo = registry.make("algo", spec.algo,
+                         **{**dict(spec.model), **dict(spec.algo_kwargs)})
+    buffer = registry.make("buffer", spec.buffer or algo.default_buffer)
+    kernels_mod.set_kernel_mode(spec.kernels)
+    params, opt_state = algo.init(
+        torch.Generator().manual_seed(sched.seed), env, device)
+    rollout = algo.make_rollout(env, sched.horizon)
+    if vector:
+        seeds, per = [sched.seed], env.batch
+    else:
+        per = sampler_mod.split_batch(sched.global_batch, sched.num_samplers)
+        seeds = [sched.seed + i for i in range(sched.num_samplers)]
+    carries = [sampler_mod.init_env_carry(env, s, per, device)
+               for s in seeds]
+    backend = registry.make("backend", spec.backend, rollout=rollout,
+                            carries=carries)
+    return SyncRunner(backend, make_train_step(algo, buffer), params,
+                      opt_state, plane_state=(buffer.init(), None))
+
+
+def run(spec: ExperimentSpec, iterations: Optional[int] = None,
+        device=None) -> ExperimentResult:
+    """Build the spec's runner on ``device`` and drive it; the runner is
+    closed in a ``finally``."""
+    runner = build(spec, device=device)
+    try:
+        logs = runner.run(iterations if iterations is not None
+                          else spec.schedule.iterations)
+    finally:
+        runner.close()
+    return ExperimentResult(spec=spec, logs=logs, runner=runner)

@@ -1,0 +1,32 @@
+"""The kernel plane: CUDA kernels for the RL hot loop, each beside its
+plain PyTorch version, selected by ``kernels.select``.
+
+``KERNELS`` maps each kernel to its wrapper; a wrapper's ``launches``
+attribute counts the launches of its kernel, so a run can show that it went
+through the kernels.
+"""
+from repro_torch.kernels.env_step.ops import (  # noqa: F401
+    cheetah_step_cuda,
+    pendulum_step_cuda,
+)
+from repro_torch.kernels.gae.ops import gae_cuda  # noqa: F401
+from repro_torch.kernels.select import (  # noqa: F401
+    MODES,
+    kernel_mode,
+    set_kernel_mode,
+)
+
+KERNELS = {
+    "pendulum_step": pendulum_step_cuda,
+    "cheetah_step": cheetah_step_cuda,
+    "gae": gae_cuda,
+}
+
+
+def reset_launch_counts() -> None:
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: wrapper.launches for name, wrapper in KERNELS.items()}

@@ -25,6 +25,8 @@ collect_ignore = (
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests (excluded in CI)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(scope="session")

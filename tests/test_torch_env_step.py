@@ -1,0 +1,147 @@
+"""Env-step parity: the port's plain PyTorch env step against the JAX
+reference (``impl="ref"``). The CUDA kernel against the plain version is in
+``test_torch_kernels_gpu.py``.
+
+Tolerances:
+
+* ``t`` and ``done`` exact; rows that end their episode hand back the reset
+  candidates exactly.
+* float leaves, port vs JAX on the CPU: within 4 float32 steps at the
+  largest magnitude of the step's output. XLA's and ATen's ``sin``/``cos``
+  differ by an ulp and XLA contracts some ``a*b + c`` into FMAs, and the
+  difference propagates through cancellation (e.g. ``th`` near 30 feeds
+  ``cos(th)``), so a per-element ulp count near zero is no bound.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.env_step import ops as jax_env_ops
+from repro_torch.kernels import select
+from repro_torch.kernels.env_step import ops as env_ops
+from repro_torch.kernels.env_step import ref as env_ref
+
+HORIZON = 5
+PARAMS = {"pendulum": dict(max_torque=2.0), "cheetah": dict(ctrl_cost=0.1)}
+
+
+def make_inputs(name, B, seed):
+    """numpy (state, actions, reset_state, reset_obs) with a third of the
+    rows at their last step, so the reset select fires."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape, lo=-1.0, hi=1.0):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    t = rng.integers(0, HORIZON - 1, B).astype(np.int32)
+    t[rng.permutation(B)[: max(1, B // 3)]] = HORIZON - 1
+    rt = np.zeros(B, np.int32)
+    if name == "pendulum":
+        state = (f(B, lo=-3 * np.pi, hi=3 * np.pi), f(B, lo=-8, hi=8), t)
+        reset = (f(B, lo=-np.pi, hi=np.pi), f(B), rt)
+        return state, f(B, 1, lo=-3, hi=3), reset, f(B, 3)
+    state = (f(B, 6), f(B, 6), f(B, lo=-2, hi=2), f(B), t)
+    reset = (f(B, 6, lo=-0.1, hi=0.1), f(B, 6, lo=-0.1, hi=0.1),
+             np.zeros(B, np.float32), np.zeros(B, np.float32), rt)
+    return state, f(B, 6, lo=-2, hi=2), reset, f(B, 14)
+
+
+def flat(out):
+    """(state, obs, rew, done) of either package -> list of numpy arrays."""
+    state, obs, rew, done = out
+    return [x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (*state, obs, rew, done)]
+
+
+def to_torch(tree, device="cpu"):
+    if isinstance(tree, tuple):
+        return tuple(to_torch(x, device) for x in tree)
+    return torch.from_numpy(tree).to(device)
+
+
+def assert_step_close(got, want, *, ulps=4):
+    """Exact on int/bool; floats within ``ulps`` float32 steps at the
+    largest magnitude of the output."""
+    scale = max(float(np.abs(w).max(initial=0)) for w in want
+                if w.dtype.kind == "f")
+    atol = ulps * float(np.spacing(np.float32(max(scale, 1.0))))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if w.dtype.kind in "iub":
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("name", ["pendulum", "cheetah"])
+@pytest.mark.parametrize("B", [1, 7, 700])
+@pytest.mark.parametrize("reward_scale", [1.0, 0.5])
+def test_plain_env_step_matches_jax_ref(name, B, reward_scale):
+    state, a, rs, ro = make_inputs(name, B, seed=B)
+    params = dict(max_episode_steps=HORIZON, reward_scale=reward_scale,
+                  **PARAMS[name])
+    step = jax.jit(lambda s, a, rs, ro: jax_env_ops.env_step(
+        name, s, a, rs, ro, impl="ref", **params))
+    want = flat(step(jax.tree.map(jnp.asarray, state), jnp.asarray(a),
+                     jax.tree.map(jnp.asarray, rs), jnp.asarray(ro)))
+    got = flat(env_ops.env_step(name, to_torch(state), to_torch(a),
+                                to_torch(rs), to_torch(ro), **params))
+    assert_step_close(got, want)
+    done = got[-1]
+    assert done.dtype == np.bool_ and done.sum() >= max(1, B // 3)
+    # ended rows carry the reset candidates, bit for bit
+    n_state = len(state)
+    for leaf, cand in zip(got[:n_state], rs):
+        np.testing.assert_array_equal(leaf[done], cand[done])
+    np.testing.assert_array_equal(got[n_state][done], ro[done])
+
+
+@pytest.mark.parametrize("impl", ["auto", "cuda", "pallas", "ref"])
+def test_cpu_tensor_takes_plain_version(impl):
+    """On a CPU tensor every mode runs the plain version and launches
+    nothing."""
+    state, a, rs, ro = make_inputs("cheetah", 9, seed=1)
+    before = env_ops.cheetah_step_cuda.launches
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0, ctrl_cost=0.1)
+    got = flat(env_ops.env_step("cheetah", to_torch(state), to_torch(a),
+                                to_torch(rs), to_torch(ro), impl=impl,
+                                **params))
+    want = flat(env_ref.cheetah_step_batch_ref(
+        to_torch(state), to_torch(a), to_torch(rs), to_torch(ro), **params))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert env_ops.cheetah_step_cuda.launches == before
+
+
+def test_select_modes():
+    x = torch.zeros(1)
+    assert select.canonical("pallas") == "cuda"
+    assert select.canonical("auto") == "cuda"
+    assert not select.use_kernel("cuda", x)
+    with pytest.raises(ValueError, match="unknown kernel mode"):
+        select.use_kernel("triton", x)
+    with pytest.raises(ValueError, match="no kernel"):
+        select.use_kernel("auto", torch.zeros(1, device="meta"))
+    prev = select.set_kernel_mode("pallas")
+    try:
+        assert select.kernel_mode() == "cuda"
+    finally:
+        select.set_kernel_mode(prev)
+
+
+def test_kernel_wrapper_rejects_bad_layout():
+    """The wrapper checks shapes and types before it builds or launches
+    anything; the TPU kernel's (leaf, B) layout is refused."""
+    state, a, rs, ro = make_inputs("cheetah", 4, seed=2)
+    st = to_torch(state)
+    bad = (st[0].T.contiguous(),) + st[1:]
+    with pytest.raises(ValueError, match="th must be"):
+        env_ops.cheetah_step_cuda(bad, to_torch(a), to_torch(rs),
+                                  to_torch(ro), max_episode_steps=HORIZON,
+                                  reward_scale=1.0, ctrl_cost=0.1)
+    with pytest.raises(KeyError, match="cartpole"):
+        env_ops.env_step("cartpole", st, to_torch(a), to_torch(rs),
+                         to_torch(ro))
+

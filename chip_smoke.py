@@ -6,31 +6,44 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device: the card's name and power limit from ``nvidia-smi``;
-2. build: every CUDA kernel of the slice, compiled from ``src/repro_torch/
+2. build: every CUDA kernel of the slices, compiled from ``src/repro_torch/
    kernels/csrc`` (one ``nvcc`` per source, all at once);
 3. kernels: each kernel's wrapper on card tensors at the shapes the main
    path gives it (and a larger env batch with a third of the rows at their
    last step, so the reset select fires), held against its plain PyTorch
    version on the same inputs: ``t``/``done`` and GAE exactly, env float
-   leaves within 4 ulp (or 4 ulp of the leaf's magnitude near zero);
+   leaves within 4 ulp (or 4 ulp of the leaf's magnitude near zero); the
+   replay ring (N > cap, wraparound, cap 1, float, bool and int rows) and
+   the sum tree (capacities 1, 2, 1024 and 2^20, zero-mass leaves, updates
+   with duplicate indices) exactly;
 4. main path, each run with the launch counts set to 0 just before it and
    read just after: PPO on cheetah through the train CLI with the paper's
    budget (10 samplers × 16 envs × 125 steps = 20,000 samples per
    iteration, 3 iterations), the vector path (one 4096-env batch, 128
    steps, 2 iterations), and the CLI's default env, pendulum (10 × 16 ×
-   125, 2 iterations). Every log must be finite with the expected sample
-   count, and each kernel's count must equal the steps and learns the run
+   125, 2 iterations); then SAC on cheetah through the train CLI with
+   prioritized replay (the same budget, 3 iterations; replay capacity
+   1,000,000, i.e. 2^20 slots, and minibatch 256, the SAC paper's), and SAC
+   on pendulum with uniform replay (2 iterations). Every log must be
+   finite with the expected sample count, and each kernel's count must
+   equal the steps, learns, inserts, draws and priority updates the run
    made;
-5. reference: a small run with the kernels and the same run with the plain
-   versions (``kernels="ref"``) must end with the same weights;
+5. reference: a small PPO run and a small SAC prioritized run with the
+   kernels, and the same runs with the plain versions (``kernels="ref"``),
+   must end with the same weights (SAC: bit for bit, its replay ring and
+   tree too);
 6. timings: each kernel's median time per call (CUDA events around
    back-to-back calls, host launch included) and its device time alone
    (calls captured in a CUDA graph and replayed), the same two for its
-   plain version, and the least time the card could take (bytes at
-   3.35 TB/s or float32 operations at 67 TFLOP/s, H100 SXM data sheet;
-   an env step's reset candidates count only for the rows whose episode
-   ends, the only rows whose candidates the kernel reads), printed as one
-   JSON line ``{"kernels": [...]}``.
+   plain version, the least time the card could take (bytes at 3.35 TB/s
+   or float32 operations at 67 TFLOP/s, H100 SXM data sheet; an env step's
+   reset candidates count only for the rows whose episode ends, the only
+   rows whose candidates the kernel reads; a tree op's nodes only where
+   this call's paths touch them), and, where one PyTorch call per leaf
+   computes the same function (``index_copy_`` for the ring insert,
+   ``index_select`` for the gather), that call's time, printed as one JSON
+   line ``{"kernels": [...]}``. A replay-ring time covers one call of the
+   op over the 5 stored leaves (5 launches).
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero at once.
@@ -59,17 +72,32 @@ ENV_ULPS = 4
 
 # float operations per instance / element, counted from the kernel bodies
 # (adds, multiplies, divides, transcendentals and clamps, one each)
-OPS = {"pendulum_step": 30, "cheetah_step": 150, "gae": 7}
+# (ring ops: none; tree ops per node visited: a compare, a subtract and a
+# select on the way down, one add per parent on the way up)
+OPS = {"pendulum_step": 30, "cheetah_step": 150, "gae": 7,
+       "ring_insert": 0, "ring_gather": 0, "sumtree_find": 3,
+       "sumtree_update": 1}
 REPLACES = {
     "pendulum_step": "src/repro/kernels/env_step/env_step_pallas.py:102",
     "cheetah_step": "src/repro/kernels/env_step/env_step_pallas.py:254",
     "gae": "src/repro/kernels/gae/gae_pallas.py:117",
+    "ring_insert": "src/repro/kernels/replay_ring/replay_ring_pallas.py:56",
+    "ring_gather": "src/repro/kernels/replay_ring/replay_ring_pallas.py:77",
+    "sumtree_find": "src/repro/kernels/sum_tree/sum_tree_pallas.py:103",
+    "sumtree_update": "src/repro/kernels/sum_tree/sum_tree_pallas.py:126",
 }
 SOURCES = {
     "pendulum_step": "src/repro_torch/kernels/csrc/env_step.cu",
     "cheetah_step": "src/repro_torch/kernels/csrc/env_step.cu",
     "gae": "src/repro_torch/kernels/csrc/gae.cu",
+    "ring_insert": "src/repro_torch/kernels/csrc/replay_ring.cu",
+    "ring_gather": "src/repro_torch/kernels/csrc/replay_ring.cu",
+    "sumtree_find": "src/repro_torch/kernels/csrc/sum_tree.cu",
+    "sumtree_update": "src/repro_torch/kernels/csrc/sum_tree.cu",
 }
+CHEETAH_LEAVES = {"obs": (14,), "actions": (6,), "rewards": (),
+                  "next_obs": (14,), "discounts": ()}
+CAP = 1 << 20
 
 
 def log(msg: str) -> None:
@@ -150,6 +178,66 @@ def gae_inputs(T, B, seed):
     return [torch.from_numpy(x).to("cuda") for x in (r, v, d, lv)]
 
 
+def ring_leaves(rows, gen, kinds=None):
+    """Random leaves of ``rows`` rows on the card: the SAC cheetah
+    transition schema by default, else ``{name: (trailing shape, dtype)}``."""
+    kinds = kinds or {k: (s, torch.float32) for k, s in
+                      CHEETAH_LEAVES.items()}
+    out = {}
+    for k, (shape, dtype) in kinds.items():
+        size = (rows,) + tuple(shape)
+        if dtype == torch.bool:
+            out[k] = torch.rand(size, generator=gen, device="cuda") < 0.5
+        elif dtype == torch.int32:
+            out[k] = torch.randint(-9, 9, size, generator=gen,
+                                   device="cuda", dtype=torch.int32)
+        else:
+            out[k] = torch.randn(size, generator=gen, device="cuda")
+    return out
+
+
+MIXED_LEAVES = {"f14": ((14,), torch.float32), "f": ((), torch.float32),
+                "f4": ((4,), torch.float32), "b3": ((3,), torch.bool),
+                "i2": ((2,), torch.int32)}
+
+
+def random_tree(cap, filled, gen):
+    """A sum tree on the card with ``filled`` leading leaves of positive
+    mass (a third of them zero), the rest zero."""
+    from repro_torch.kernels.sum_tree import sumtree_build
+    leaves = torch.zeros(cap, device="cuda")
+    x = torch.rand(filled, generator=gen, device="cuda")
+    leaves[:filled] = torch.where(x < 0.33, torch.zeros_like(x), x)
+    return sumtree_build(leaves)
+
+
+def stratified_masses(tree, B, gen):
+    u = torch.rand(B, generator=gen, device="cuda")
+    return ((torch.arange(B, device="cuda") + u)
+            / torch.tensor(float(B), device="cuda")) * tree.total
+
+
+def tree_path_nodes(idx, cap):
+    """Distinct parents on the root paths of leaf indices ``idx``, level by
+    level above the leaves: the nodes a descent reads the left child of,
+    and an update rewrites."""
+    idx = idx.to(torch.int64)
+    return [int(torch.unique(idx >> (k + 1)).numel())
+            for k in range(cap.bit_length() - 1)]
+
+
+def tree_update_bytes(idx, cap):
+    """Bytes a batched leaf update must move beyond ``idx`` and the values:
+    each distinct leaf written once, each touched parent written once, and
+    each child of a touched parent read only where it is not itself on a
+    touched path (a touched child's value was just written by the call)."""
+    idx = idx.to(torch.int64)
+    touched = [int(torch.unique(idx >> k).numel())
+               for k in range(cap.bit_length())]
+    return 4 * touched[0] + sum(4 * p + 4 * (2 * p - c)
+                                for c, p in zip(touched, touched[1:]))
+
+
 # ---------------------------------------------------------------- timing
 def time_ms(fn, reps, rounds=5):
     """Median over ``rounds`` of the mean time of ``reps`` back-to-back
@@ -185,14 +273,20 @@ def graph_ms(fn, reps):
     return time_ms(graph.replay, 1) / reps
 
 
-def measure(kernel, shape, n, moved, fn, plain, reps, plain_reps):
+def measure(kernel, shape, n, moved, fn, plain, reps, plain_reps,
+            library=None, plain_graph=True):
     """Timings of one kernel and its plain version on the same inputs:
     ``ms``/``plain_ms`` per call as the main path makes it (host launch
-    included), ``device_ms``/``plain_device_ms`` from graph replay."""
+    included), ``device_ms``/``plain_device_ms`` from graph replay (None
+    where the plain version syncs with the host and so cannot be
+    captured), and ``library_ms`` for one PyTorch call of the same
+    function, where there is one."""
     b_ms, b_by = bound(kernel, n, moved)
     return {"ms": time_ms(fn, reps), "plain_ms": time_ms(plain, plain_reps),
             "device_ms": graph_ms(fn, reps),
-            "plain_device_ms": graph_ms(plain, plain_reps),
+            "plain_device_ms": (graph_ms(plain, plain_reps) if plain_graph
+                                else None),
+            "library_ms": None if library is None else time_ms(library, reps),
             "bound_ms": b_ms, "bound_by": b_by, "shape": shape,
             "bytes": moved}
 
@@ -220,6 +314,9 @@ def main() -> int:
     from repro_torch.kernels.env_step import ops as env_ops
     from repro_torch.kernels.env_step import ref as env_ref
     from repro_torch.kernels.gae import ops as gae_ops
+    from repro_torch.kernels.replay_ring import ops as ring_ops
+    from repro_torch.kernels.sum_tree import ops as tree_ops
+    from repro_torch.kernels.sum_tree.ref import SumTree
     from repro_torch.launch import train
 
     # 1. device
@@ -271,6 +368,64 @@ def main() -> int:
         errs["gae"] = (max(errs["gae"][0], u), max(errs["gae"][1], e))
         log(f"check gae T={T} B={B}: exact (max {u} ulp)")
 
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def exact(name, got, want):
+        for k in want:
+            assert got[k].dtype == want[k].dtype and torch.equal(
+                got[k], want[k]), f"{name}: leaf {k} differs"
+
+    for cap, n, start in ((17, 5, 15), (12, 12, 7), (8, 11, 3), (1, 1, 0),
+                          (1, 3, 0), (CAP, 20000, CAP - 7000)):
+        for kinds in (MIXED_LEAVES, None):
+            storage = ring_leaves(cap, gen, kinds)
+            batch = ring_leaves(n, gen, kinds)
+            want = ring_ops.ring_insert_ref(
+                {k: v.clone() for k, v in storage.items()}, batch, start)
+            got = ring_ops.ring_insert(storage, batch, start, impl="cuda")
+            torch.cuda.synchronize()
+            exact(f"ring_insert cap={cap} n={n}", got, want)
+        log(f"check ring_insert cap={cap} N={n} start={start}: exact")
+    for cap, B in ((17, 6), (1, 1), (CAP, 256)):
+        storage = ring_leaves(cap, gen, MIXED_LEAVES)
+        idx = torch.randint(0, cap, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        idx[0] = cap + 5 if B > 1 else idx[0]    # clamped into the ring
+        if B > 1:
+            idx[1] = -1                          # counts from the end
+        got = ring_ops.ring_gather(storage, idx, impl="cuda")
+        want = ring_ops.ring_gather_ref(storage, idx)
+        torch.cuda.synchronize()
+        exact(f"ring_gather cap={cap} B={B}", got, want)
+        log(f"check ring_gather cap={cap} B={B}: exact")
+    for cap in (1, 2, 1024, CAP):
+        tree = random_tree(cap, min(cap, 60000), gen)
+        masses = stratified_masses(tree, 256, gen)
+        masses[:2] = torch.stack([torch.zeros((), device="cuda"),
+                                  tree.total])
+        got = tree_ops.sumtree_find_batch(tree, masses, impl="cuda")
+        want = tree_ops.sumtree_find_batch_ref(tree, masses)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"sumtree_find cap={cap} differs"
+        for B, consecutive in ((256, False), (20000, True)):
+            if consecutive:
+                idx = (torch.arange(B, device="cuda") + cap // 3) % cap
+            else:
+                idx = torch.randint(0, cap, (B,), generator=gen,
+                                    device="cuda")
+                idx[-B // 4:] = idx[0]           # duplicates: last one wins
+                # one from the end, its twin, and two that are dropped
+                idx[1:5] = torch.tensor([-1, cap - 1, cap, -cap - 1])
+            idx = idx.to(torch.int32)
+            vals = torch.rand(B, generator=gen, device="cuda")
+            want = SumTree.of(tree.flat.clone())
+            tree_ops.sumtree_update_ref(want, idx, vals)
+            tree_ops.sumtree_update(tree, idx, vals, impl="cuda")
+            torch.cuda.synchronize()
+            assert torch.equal(tree.flat, want.flat), (
+                f"sumtree_update cap={cap} B={B} differs")
+            assert bool((tree.winner == -1).all()), "scratch not reset"
+        log(f"check sumtree_find/sumtree_update cap={cap}: exact")
     # 4. main path
     runs = {}
 
@@ -283,9 +438,11 @@ def main() -> int:
         return out
 
     def cli(argv):
+        """The train CLI's printed logs (and its result, kept in
+        ``cli.result``)."""
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
-            train.main(argv)
+            cli.result = train.main(argv)
         return [json.loads(line) for line in buf.getvalue().splitlines()]
 
     def check_logs(label, logs, iters, samples):
@@ -301,33 +458,75 @@ def main() -> int:
                 f"(serial {lg['collect_time_serial']:.3f} s) "
                 f"learn {lg['learn_time']:.3f} s samples {lg['samples']}")
 
+    def zero_counts(**nonzero):
+        """Launch counts: ``nonzero`` as given, every other kernel 0."""
+        return {**{k: 0 for k in kernels.KERNELS}, **nonzero}
+
     n, per, h = 10, 16, 125
     logs = counted("cheetah N=10", lambda: cli(
         ["--mode", "rl", "--env", "cheetah", "--algo", "ppo",
          "--num-samplers", str(n), "--global-batch", str(n * per),
          "--horizon", str(h), "--iterations", "3"]))
     check_logs("cheetah N=10", logs, 3, n * per * h)
-    assert runs["cheetah N=10"] == {"pendulum_step": 0,
-                                    "cheetah_step": 3 * n * h, "gae": 3}
+    assert runs["cheetah N=10"] == zero_counts(cheetah_step=3 * n * h,
+                                               gae=3)
 
     vec = counted("cheetah vector B=4096", lambda: run(ExperimentSpec(
         env="cheetah", algo="ppo", schedule=Schedule(
             env_batch=4096, horizon=128, iterations=2))))
     check_logs("cheetah vector", vec.logs, 2, 4096 * 128)
-    assert runs["cheetah vector B=4096"] == {"pendulum_step": 0,
-                                             "cheetah_step": 2 * 128,
-                                             "gae": 2}
+    assert runs["cheetah vector B=4096"] == zero_counts(
+        cheetah_step=2 * 128, gae=2)
 
     pend = counted("pendulum N=10", lambda: run(ExperimentSpec(
         env="pendulum", algo="ppo", schedule=Schedule(
             num_samplers=n, global_batch=n * per, horizon=h,
             iterations=2))))
     check_logs("pendulum N=10", pend.logs, 2, n * per * h)
-    assert runs["pendulum N=10"] == {"pendulum_step": 2 * n * h,
-                                     "cheetah_step": 0, "gae": 2}
+    assert runs["pendulum N=10"] == zero_counts(pendulum_step=2 * n * h,
+                                                gae=2)
     for res in (vec, pend):
         for p in res.params.parameters():
             assert torch.isfinite(p).all(), "non-finite weights"
+
+    updates, n_leaves = 4, len(CHEETAH_LEAVES)
+    logs = counted("sac cheetah N=10 prioritized", lambda: cli(
+        ["--env", "cheetah", "--algo", "sac", "--buffer", "prioritized",
+         "--num-samplers", str(n), "--global-batch", str(n * per),
+         "--horizon", str(h), "--iterations", "3",
+         "--replay-capacity", "1000000", "--replay-batch", "256"]))
+    check_logs("sac cheetah N=10 prioritized", logs, 3, n * per * h)
+    assert runs["sac cheetah N=10 prioritized"] == zero_counts(
+        cheetah_step=3 * n * h, ring_insert=3 * n_leaves,
+        ring_gather=3 * n_leaves * updates, sumtree_find=3 * updates,
+        sumtree_update=3 * (1 + updates)), runs
+    ring, tree, max_p = cli.result.runner.plane_state[0]
+    assert tree.capacity == CAP and ring.size == 3 * n * per * h
+    assert int((tree.levels[0] > 0).sum()) == ring.size
+    total = float(tree.total)
+    assert math.isclose(total, float(tree.levels[0].double().sum()),
+                        rel_tol=1e-4), total
+    assert math.isfinite(float(max_p)) and float(max_p) >= 1.0
+    log(f"  sac prioritized: ring {ring.size} of {CAP}, tree total "
+        f"{total:.6g}, max priority {float(max_p):.6g}")
+    sac_runs = [cli.result]
+
+    sac_pend = counted("sac pendulum N=10 uniform", lambda: run(
+        ExperimentSpec(env="pendulum", algo="sac", buffer="uniform",
+                       buffer_kwargs={"capacity": 1_000_000,
+                                      "batch_size": 256},
+                       schedule=Schedule(num_samplers=n,
+                                         global_batch=n * per, horizon=h,
+                                         iterations=2))))
+    check_logs("sac pendulum N=10 uniform", sac_pend.logs, 2, n * per * h)
+    assert sac_pend.logs[-1].mean_return != 0.0, "no pendulum episode ended"
+    assert runs["sac pendulum N=10 uniform"] == zero_counts(
+        pendulum_step=2 * n * h, ring_insert=2 * n_leaves,
+        ring_gather=2 * n_leaves * updates), runs
+    sac_runs.append(sac_pend)
+    for res in sac_runs:
+        for p in res.params.parameters():
+            assert torch.isfinite(p).all(), "non-finite SAC weights"
 
     # 5. reference: kernels vs plain versions end to end on a small run
     small = Schedule(num_samplers=2, global_batch=8, horizon=40,
@@ -346,6 +545,30 @@ def main() -> int:
     log(f"reference: cuda vs ref kernels, mean returns "
         f"{finals['cuda return']}, final weights max abs diff {diff}")
     assert diff <= 1e-5, diff
+
+    sac_finals = {}
+    for mode in ("cuda", "ref"):
+        kernels.reset_launch_counts()
+        res = run(ExperimentSpec(
+            env="cheetah", algo="sac", buffer="prioritized", kernels=mode,
+            buffer_kwargs={"capacity": 4096, "batch_size": 64},
+            env_kwargs={"max_episode_steps": 25}, schedule=small))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert (sum(counts.values()) > 0) == (mode == "cuda"), counts
+        ring, tree, max_p = res.runner.plane_state[0]
+        sac_finals[mode] = ([p.detach().clone()
+                             for p in res.params.parameters()]
+                            + [tree.flat.clone(), max_p.clone()]
+                            + [v.clone() for v in ring.storage.values()],
+                            [lg.mean_return for lg in res.logs])
+    (got, got_ret), (want, want_ret) = sac_finals["cuda"], sac_finals["ref"]
+    assert got_ret == want_ret and all(r != 0.0 for r in got_ret), (
+        got_ret, want_ret)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+        "SAC cuda vs ref: weights, tree or ring differ")
+    log(f"reference: SAC prioritized, cuda vs ref kernels: weights, tree and "
+        f"ring bit for bit equal, mean returns {got_ret}")
 
     # 6. timings at the main path's shapes (10 samplers of 16 envs), and at
     # the vector path's
@@ -373,6 +596,56 @@ def main() -> int:
             "gae", f"T={T} B={gB}", T * gB, nbytes(r, v, d, lv, adv, ret),
             lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95),
             lambda: gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95), 200, 5)
+    # the replay path at the SAC cheetah run's shapes: 20,000 transitions
+    # of 144 B inserted into 2^20 slots, 256 drawn from 60,000 filled ones
+    n_rows, B = n * per * h, 256
+    storage = ring_leaves(CAP, gen)
+    batch = ring_leaves(n_rows, gen)
+    start = CAP - 7000
+    pos = (torch.arange(n_rows, device="cuda") + start) % CAP
+    row_bytes = nbytes(*(v[:1] for v in storage.values()))
+    timings["main", "ring_insert"] = measure(
+        "ring_insert", f"N={n_rows} cap={CAP} leaves={n_leaves}", 0,
+        2 * n_rows * row_bytes,
+        lambda: ring_ops.ring_insert(storage, batch, start, impl="cuda"),
+        lambda: ring_ops.ring_insert_ref(storage, batch, start), 50, 20,
+        library=lambda: [storage[k].index_copy_(0, pos, batch[k])
+                         for k in storage])
+    idx = torch.randint(0, 3 * n_rows, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx64 = idx.to(torch.int64)
+    timings["main", "ring_gather"] = measure(
+        "ring_gather", f"B={B} cap={CAP} leaves={n_leaves}", 0,
+        # each distinct row read once, each sampled row written once
+        (int(torch.unique(idx).numel()) + B) * row_bytes + nbytes(idx),
+        lambda: ring_ops.ring_gather(storage, idx, impl="cuda"),
+        lambda: ring_ops.ring_gather_ref(storage, idx), 200, 50,
+        library=lambda: [torch.index_select(v, 0, idx64)
+                         for v in storage.values()])
+    del storage, batch
+    tree = random_tree(CAP, 3 * n_rows, gen)
+    masses = stratified_masses(tree, B, gen)
+    found = tree_ops.sumtree_find_cuda(tree, masses)
+    nodes = tree_path_nodes(found, CAP)
+    timings["main", "sumtree_find"] = measure(
+        "sumtree_find", f"B={B} cap={CAP}", B * (CAP.bit_length() - 1),
+        4 * sum(nodes) + nbytes(masses, found),
+        lambda: tree_ops.sumtree_find_cuda(tree, masses),
+        lambda: tree_ops.sumtree_find_batch_ref(tree, masses), 200, 50)
+    for label, upd_idx in (
+            ("main", found),
+            ("add", ((torch.arange(n_rows, device="cuda") + start) % CAP)
+             .to(torch.int32))):
+        vals = torch.rand(upd_idx.shape[0], generator=gen, device="cuda")
+        nodes = tree_path_nodes(upd_idx, CAP)
+        # the plain version picks the winners of duplicate indices with a
+        # boolean mask, which syncs with the host: no graph capture
+        timings[label, "sumtree_update"] = measure(
+            "sumtree_update", f"B={upd_idx.shape[0]} cap={CAP}", sum(nodes),
+            nbytes(upd_idx, vals) + tree_update_bytes(upd_idx, CAP),
+            lambda: tree_ops.sumtree_update_cuda(tree, upd_idx, vals),
+            lambda: tree_ops.sumtree_update_ref(tree, upd_idx, vals), 50, 10,
+            plain_graph=False)
     entries = []
     for name in kernels.KERNELS:
         entries.append({
@@ -380,10 +653,13 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": sum(c[name] for c in runs.values()),
             "max_abs_err": errs[name][1], "max_ulp": errs[name][0],
-            **timings["main", name], "library_ms": None})
+            **timings["main", name]})
     log(json.dumps({"kernels_at_vector_shapes": [
         {"name": name, **t} for (label, name), t in timings.items()
         if label == "vector"]}))
+    log(json.dumps({"kernels_at_add_shapes": [
+        {"name": name, **t} for (label, name), t in timings.items()
+        if label == "add"]}))
     log(json.dumps({"launches_by_run": runs}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
 """The ``Algorithm`` seam between learners and the runtime (port of
-``repro/algos/api.py``; PPO only, the other algorithms are in ROADMAP.md).
+``repro/algos/api.py``; PPO and SAC, the other algorithms are in
+ROADMAP.md).
 
 An algorithm provides ``init(generator, env, device) -> (params,
 opt_state)``, ``learn(params, opt_state, batch) -> (params, opt_state,
 metrics)`` and ``act(params, obs, noise) -> (action, extras)``, where
 ``noise`` is the standard-normal draw that stands in for the reference's
 PRNG key. ``make_train_step`` composes it with a buffer into the step the
-runner drives.
+runner drives. Off-policy algorithms (``OffPolicyAlgorithm``) record
+``next_obs``, learn from replay minibatches, and draw their learner noise
+from the plane's generator.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch import registry
-from repro_torch.algos.ppo import PPOConfig, make_mlp_learner
+from repro_torch.algos.ppo import PPOConfig, make_mlp_learner, mean_metrics
 from repro_torch.core import sampler as sampler_mod
 from repro_torch.models import mlp_policy
 from repro_torch.optim import adam
@@ -25,6 +28,8 @@ class AlgorithmBase:
     """Default runtime + experience-plane hooks shared by the adapters."""
 
     name = "base"
+    on_policy = True
+    needs_next_obs = False
     default_buffer = "fifo"
     updates_per_collect = 1
 
@@ -43,23 +48,68 @@ class AlgorithmBase:
         return buffer.sample(state, generator)
 
 
+class OffPolicyAlgorithm(AlgorithmBase):
+    """Shared plane wiring for replay-based learners: full transitions
+    (``next_obs``) recorded at collect time, the transition schema buffers
+    allocate, and the learner noise drawn with each sampled batch.
+    Staleness correction is not ported (``experiment`` rejects it)."""
+
+    on_policy = False
+    needs_next_obs = True
+    default_buffer = "uniform"
+    updates_per_collect = 4
+
+    def transition_example(self, env, device) -> Dict[str, torch.Tensor]:
+        """One zeroed transition on ``device``: the storage schema."""
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        return {"obs": zeros(1, env.obs_dim),
+                "actions": zeros(1, env.act_dim),
+                "rewards": zeros(1),
+                "next_obs": zeros(1, env.obs_dim),
+                "dones": zeros(1, dtype=torch.bool)}
+
+    def sample(self, buffer, state, generator):
+        """The buffer's batch, then the learner noise ``noise_next`` and
+        ``noise_new`` (B, act_dim), drawn from ``generator`` after the
+        buffer's draws (the reference passes a key as ``batch["rng"]``)."""
+        batch = buffer.sample(state, generator)
+        shape = tuple(batch["actions"].shape)
+        for k in ("noise_next", "noise_new"):
+            batch[k] = torch.randn(shape, generator=generator,
+                                   device=generator.device)
+        return batch
+
+
 def make_train_step(algo, buffer) -> Callable:
     """``step(params, opt_state, plane, traj) -> (params, opt_state, plane,
     metrics)`` with ``plane = (buffer_state, generator)`` owned by the
-    runner: observe the trajectory, sample, learn. Only the pass-through
-    form (``fifo``, one update per collect) is ported."""
-    if not (getattr(buffer, "passthrough", False)
-            and int(getattr(algo, "updates_per_collect", 1)) == 1):
-        raise NotImplementedError(
-            "replay buffers and several updates per collect are not ported "
-            "to repro_torch yet; see ROADMAP.md")
+    runner.
+
+    Per call: observe the trajectory, then ``algo.updates_per_collect``
+    sample -> learn steps; a learner that reports per-sample
+    ``priorities`` gets them routed into ``buffer.update_priorities``.
+    Metrics are averaged over the updates and stay on the device. PPO is
+    the one-update case: the ``fifo`` buffer hands back the trajectory,
+    so the step is ``learn(params, opt_state, traj)``."""
+    updates = int(getattr(algo, "updates_per_collect", 1))
 
     def step(params, opt_state, plane, traj):
         buf_state, generator = plane
         buf_state = algo.observe(buffer, buf_state, traj)
-        batch = algo.sample(buffer, buf_state, generator)
-        params, opt_state, metrics = algo.learn(params, opt_state, batch)
-        return params, opt_state, (buf_state, generator), metrics
+        ms = []
+        for _ in range(updates):
+            batch = algo.sample(buffer, buf_state, generator)
+            params, opt_state, metrics = algo.learn(params, opt_state,
+                                                    batch)
+            metrics = dict(metrics)
+            priorities = metrics.pop("priorities", None)
+            if priorities is not None:
+                buf_state = buffer.update_priorities(
+                    buf_state, batch["indices"], priorities)
+            ms.append(metrics)
+        return params, opt_state, (buf_state, generator), mean_metrics(ms)
 
     return step
 
@@ -108,4 +158,12 @@ class PPOAlgorithm(GaussianMLPAlgorithm):
         return self._learn(params, opt_state, traj)
 
 
+def _make_sac(**kwargs):
+    # lazy, so that api <-> sac imports never cycle (sac subclasses
+    # OffPolicyAlgorithm from this module)
+    from repro_torch.algos.sac import SACAlgorithm
+    return SACAlgorithm(**kwargs)
+
+
 registry.register("algo", "ppo", PPOAlgorithm)
+registry.register("algo", "sac", _make_sac)

@@ -53,7 +53,9 @@ def mlp_ppo_loss(policy, batch: Dict[str, torch.Tensor], cfg: PPOConfig):
     return loss, {k: m.detach() for k, m in metrics.items()}
 
 
-def _mean_metrics(ms: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+def mean_metrics(ms: List[Dict[str, torch.Tensor]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Each metric's mean over a list of metric dicts."""
     return {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
 
 
@@ -72,7 +74,7 @@ def mlp_ppo_update(policy, opt_state, batch, cfg: PPOConfig, optimizer):
         apply_updates(params, updates)
         m["grad_norm"] = gnorm
         metrics.append(m)
-    return policy, opt_state, _mean_metrics(metrics)
+    return policy, opt_state, mean_metrics(metrics)
 
 
 def make_mlp_learner(optimizer, cfg: PPOConfig):
@@ -98,6 +100,6 @@ def make_mlp_learner(optimizer, cfg: PPOConfig):
             policy, opt_state, m = mlp_ppo_update(policy, opt_state, flat,
                                                   cfg, optimizer)
             metrics.append(m)
-        return policy, opt_state, _mean_metrics(metrics)
+        return policy, opt_state, mean_metrics(metrics)
 
     return learn

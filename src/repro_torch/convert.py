@@ -1,30 +1,76 @@
 """Carry weights and optimizer state across from the JAX package.
 
-The reference's params pytree is ``{"pi": [{"w", "b"}, ...], "log_std",
-"vf": [...]}`` with ``w`` of shape ``(in, out)`` for ``x @ w``; the port's
-``MLPPolicy`` holds ``nn.Linear`` layers whose weight is ``(out, in)``, so
-``w`` is transposed on the way in and out. Inputs and outputs are numpy
-arrays (any array type ``np.asarray`` accepts), so nothing here imports JAX.
+The reference's MLPs are lists of ``{"w", "b"}`` layers with ``w`` of shape
+``(in, out)`` for ``x @ w``; the port's ``nn.Linear`` weight is ``(out,
+in)``, so ``w`` is transposed on the way in and out. Two param trees are
+mapped:
+
+* PPO's ``{"pi": [...], "log_std", "vf": [...]}`` onto ``MLPPolicy``;
+* SAC's ``{"actor": [...], "critic": {"q1", "q2"}, "target_critic":
+  {"q1", "q2"}, "log_alpha"}`` onto ``SACParams``, with its three Adam
+  states (actor, critic, temperature).
+
+Adam moments are lists in the order of the port's parameters (each layer's
+weight, then bias). Inputs and outputs are numpy arrays (any array type
+``np.asarray`` accepts), so nothing here imports JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.algos import sac
 from repro_torch.models.mlp_policy import MLPPolicy
 from repro_torch.optim.adam import AdamState
 
 
-def _flat(tree) -> List[np.ndarray]:
-    """The tree's arrays in ``MLPPolicy.parameters()`` order, weights
-    transposed to ``nn.Linear``'s layout."""
-    out = [np.asarray(tree["log_std"])]
-    for name in ("pi", "vf"):
-        for lyr in tree[name]:
-            out += [np.asarray(lyr["w"]).T, np.asarray(lyr["b"])]
+def _net(layers) -> List[np.ndarray]:
+    """A reference MLP's arrays in ``nn.Linear`` parameter order."""
+    out = []
+    for lyr in layers:
+        out += [np.asarray(lyr["w"]).T, np.asarray(lyr["b"])]
     return out
+
+
+def _net_tree(arrays: Sequence[np.ndarray]) -> List[Dict[str, np.ndarray]]:
+    """Inverse of ``_net``: ``[weight, bias, ...]`` -> reference layers."""
+    return [{"w": np.asarray(w).T.copy(), "b": np.asarray(b).copy()}
+            for w, b in zip(arrays[0::2], arrays[1::2])]
+
+
+def _numpy(tensors) -> List[np.ndarray]:
+    return [t.detach().cpu().numpy() for t in tensors]
+
+
+def _copy_into(tensors: Sequence[torch.Tensor],
+               arrays: Sequence[np.ndarray]) -> None:
+    if len(tensors) != len(arrays):
+        raise ValueError(f"{len(arrays)} arrays for {len(tensors)} "
+                         f"parameters")
+    with torch.no_grad():
+        for p, x in zip(tensors, arrays):
+            if tuple(p.shape) != np.shape(x):
+                raise ValueError(f"shape mismatch: {np.shape(x)} for a "
+                                 f"{tuple(p.shape)} parameter")
+            p.copy_(torch.from_numpy(np.array(x, np.float32)))
+
+
+def _adam(state, flatten: Callable, device) -> AdamState:
+    step, mu, nu = state
+
+    def moments(tree):
+        return [torch.from_numpy(np.array(x, np.float32)).to(device)
+                for x in flatten(tree)]
+
+    return AdamState(int(np.asarray(step)), moments(mu), moments(nu))
+
+
+# ------------------------------------------------------------------ PPO
+def _flat(tree) -> List[np.ndarray]:
+    """The tree's arrays in ``MLPPolicy.parameters()`` order."""
+    return [np.asarray(tree["log_std"])] + _net(tree["pi"]) + _net(tree["vf"])
 
 
 def params_from_jax(tree: Dict[str, Any], device="cpu") -> MLPPolicy:
@@ -36,33 +82,76 @@ def params_from_jax(tree: Dict[str, Any], device="cpu") -> MLPPolicy:
     if len(pi) != len(vf):
         raise ValueError("pi and vf MLPs must have the same depth")
     policy = MLPPolicy(obs_dim, act_dim, hidden=hidden, depth=len(pi) - 1)
-    with torch.no_grad():
-        for p, x in zip(policy.parameters(), _flat(tree)):
-            if tuple(p.shape) != x.shape:
-                raise ValueError(f"shape mismatch: {x.shape} for a "
-                                 f"{tuple(p.shape)} parameter")
-            p.copy_(torch.from_numpy(np.array(x, np.float32)))
+    _copy_into(list(policy.parameters()), _flat(tree))
     return policy.to(device)
 
 
 def params_to_jax(policy: MLPPolicy) -> Dict[str, Any]:
     """``MLPPolicy`` -> the reference's params pytree of numpy arrays."""
-    def net(layers):
-        return [{"w": lyr.weight.detach().cpu().numpy().T.copy(),
-                 "b": lyr.bias.detach().cpu().numpy().copy()}
-                for lyr in layers]
-    return {"pi": net(policy.pi),
+    return {"pi": _net_tree(_numpy(policy.pi.parameters())),
             "log_std": policy.log_std.detach().cpu().numpy().copy(),
-            "vf": net(policy.vf)}
+            "vf": _net_tree(_numpy(policy.vf.parameters()))}
 
 
 def adam_state_from_jax(state, device="cpu") -> AdamState:
     """A reference ``AdamState(step, mu, nu)`` (numpy leaves, mu/nu shaped
     like the params pytree) -> the port's ``AdamState``."""
-    step, mu, nu = state
+    return _adam(state, _flat, device)
 
-    def moments(tree):
-        return [torch.from_numpy(np.array(x, np.float32)).to(device)
-                for x in _flat(tree)]
 
-    return AdamState(int(np.asarray(step)), moments(mu), moments(nu))
+# ------------------------------------------------------------------ SAC
+def _critic(tree) -> List[np.ndarray]:
+    return _net(tree["q1"]) + _net(tree["q2"])
+
+
+def _critic_tree(arrays: Sequence[np.ndarray]) -> Dict[str, Any]:
+    half = len(arrays) // 2
+    return {"q1": _net_tree(arrays[:half]), "q2": _net_tree(arrays[half:])}
+
+
+def _sac_groups(params: sac.SACParams) -> Tuple[List[torch.Tensor], ...]:
+    return (list(params.actor.parameters()), list(params.critic.parameters()),
+            list(params.target_critic.parameters()), [params.log_alpha])
+
+
+def sac_params_from_jax(tree: Dict[str, Any], device="cpu") -> sac.SACParams:
+    """A reference SAC params pytree (numpy leaves) -> ``SACParams``."""
+    w0 = np.asarray(tree["actor"][0]["w"])
+    act_dim = np.asarray(tree["actor"][-1]["w"]).shape[1] // 2
+    params = sac.init_sac(torch.Generator(), w0.shape[0], act_dim,
+                          hidden=w0.shape[1])
+    arrays = (_net(tree["actor"]), _critic(tree["critic"]),
+              _critic(tree["target_critic"]), [np.asarray(tree["log_alpha"])])
+    for tensors, arrs in zip(_sac_groups(params), arrays):
+        _copy_into(tensors, arrs)
+    return params.to(device)
+
+
+def sac_params_to_jax(params: sac.SACParams) -> Dict[str, Any]:
+    """``SACParams`` -> the reference's SAC params pytree of numpy arrays."""
+    actor, critic, target, log_alpha = map(_numpy, _sac_groups(params))
+    return {"actor": _net_tree(actor), "critic": _critic_tree(critic),
+            "target_critic": _critic_tree(target),
+            "log_alpha": log_alpha[0].copy()}
+
+
+_SAC_OPT_FLATTEN = (_net, _critic, lambda x: [np.asarray(x)])
+
+
+def sac_adam_states_from_jax(states, device="cpu") -> Tuple[AdamState, ...]:
+    """The reference's ``(actor, critic, alpha)`` Adam states -> the
+    port's."""
+    return tuple(_adam(s, f, device) for s, f in zip(states,
+                                                     _SAC_OPT_FLATTEN))
+
+
+def sac_adam_states_to_jax(states) -> Tuple[Tuple[int, Any, Any], ...]:
+    """The port's three SAC Adam states -> ``(step, mu, nu)`` triples
+    shaped like the reference's params pytrees (numpy leaves)."""
+    def trees(arrays):
+        return (_net_tree(arrays[0]), _critic_tree(arrays[1]),
+                arrays[2][0].copy())
+
+    mus = trees([_numpy(s.mu) for s in states])
+    nus = trees([_numpy(s.nu) for s in states])
+    return tuple((s.step, m, n) for s, m, n in zip(states, mus, nus))

@@ -43,11 +43,16 @@ def make_rollout_step(algo, env_step: Callable) -> Callable:
 
     ``algo.act`` turns the noise into actions (+ per-step extras such as
     the behaviour logp and values), then ``env_step(env_state, actions,
-    *env_args)`` takes the fused env step. With ``env.batch_step`` the env
-    args are the reset candidates ``(reset_state, reset_obs)`` and the step
-    is pure, so tests inject both; the rollout loop passes
+    *env_args)`` takes the fused env step; off-policy algorithms
+    (``algo.needs_next_obs``) also get ``next_obs`` recorded (the
+    post-reset obs where an episode ended, as in the reference). With
+    ``env.batch_step`` the env args are the reset candidates
+    ``(reset_state, reset_obs)`` and the step is pure, so tests inject
+    both; the rollout loop passes
     ``batched_step(env)``, whose one arg is the generator the candidates
     are drawn from. ``out`` holds this step's trajectory row."""
+
+    needs_next_obs = algo.needs_next_obs
 
     def step(params, env_state, obs, action_noise, *env_args):
         actions, extras = algo.act(params, obs, action_noise)
@@ -55,6 +60,8 @@ def make_rollout_step(algo, env_step: Callable) -> Callable:
                                                     *env_args)
         out = {"obs": obs, "actions": actions, "rewards": rewards,
                "dones": dones, **extras}
+        if needs_next_obs:
+            out["next_obs"] = obs2
         return env_state2, obs2, out
 
     return step

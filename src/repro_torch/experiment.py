@@ -10,10 +10,18 @@ the other. The device is an argument of ``build``/``run``, not a spec field:
 it defaults to ``cuda`` and, with no CUDA device, raises rather than run on
 the CPU unasked.
 
-Ported so far: runtime ``sync``, backend ``inline``, algo ``ppo``, buffer
-``fifo``, envs ``pendulum``/``cheetah``, with ``num_samplers × global_batch``
-or ``env_batch`` collection. Anything else is rejected with a message naming
-ROADMAP.md, never ignored.
+Ported so far: runtime ``sync``, backend ``inline``, algos ``ppo`` and
+``sac``, buffers ``fifo``, ``uniform`` and ``prioritized`` (with
+``buffer_kwargs``), envs ``pendulum``/``cheetah``, with ``num_samplers ×
+global_batch`` or ``env_batch`` collection. Anything else is rejected with a
+message naming ROADMAP.md, never ignored.
+
+The runner owns the plane state ``(buffer_state, generator)``. The
+generator lives on the device and is seeded from ``schedule.seed`` with its
+own tag (``_PLANE_SEED_TAG``), apart from the params generator (``seed``)
+and the samplers' (``seed + i``). It cannot reproduce the reference's
+``fold_in(PRNGKey(seed), 0xB0FF)`` stream: torch and JAX draw different
+numbers from the same seed.
 
 Matmuls run in full float32: ``build`` sets
 ``torch.backends.cuda.matmul.allow_tf32`` and
@@ -35,6 +43,10 @@ from repro_torch.core.orchestrator import IterationLog, SyncRunner
 from repro_torch.envs.vector import VectorEnv
 
 RUNTIMES = ("sync",)
+
+# added to the seed of the plane's generator, so that it never equals the
+# params generator's seed or a sampler's (seed + i)
+_PLANE_SEED_TAG = 0xB0FF << 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,8 +143,6 @@ def _validate(spec: ExperimentSpec) -> None:
     if spec.buffer is not None and not registry.contains("buffer",
                                                          spec.buffer):
         raise _not_ported(f"buffer {spec.buffer!r}")
-    if spec.buffer_kwargs:
-        raise _not_ported("buffer_kwargs (replay buffers)")
     staleness = spec.staleness
     if isinstance(staleness, dict):
         staleness = staleness.get("mode", "off")
@@ -152,13 +162,43 @@ def _validate(spec: ExperimentSpec) -> None:
         raise _not_ported("elastic worker fleets")
 
 
+def _resolve_buffer(spec: ExperimentSpec, algo):
+    """Buffer name -> instance, checked against the algo's batch diet
+    (``ValueError`` on a mismatch, as in the reference). A replay
+    buffer's n-step discount comes from the algorithm's gamma."""
+    name = spec.buffer or algo.default_buffer
+    kwargs = dict(spec.buffer_kwargs)
+    buffer = registry.make("buffer", name, **kwargs)
+    if algo.on_policy and buffer.kind != "trajectory":
+        raise ValueError(
+            f"algo {spec.algo!r} is on-policy and learns from whole "
+            f"trajectories; buffer {name!r} serves flat transition "
+            f"minibatches — use buffer='fifo'")
+    if not algo.on_policy and buffer.kind != "transitions":
+        raise ValueError(
+            f"algo {spec.algo!r} is off-policy and learns from replay "
+            f"minibatches; buffer {name!r} passes trajectories through — "
+            f"use buffer='uniform' or 'prioritized'")
+    algo_gamma = getattr(getattr(algo, "cfg", None), "gamma", None)
+    if buffer.kind == "transitions" and algo_gamma is not None:
+        if "gamma" in kwargs:
+            raise ValueError(
+                "set the discount through algo_kwargs={'gamma': ...} — "
+                "the buffer derives its n-step discount from the "
+                "algorithm's gamma, so buffer_kwargs['gamma'] would "
+                "silently diverge from it")
+        buffer.gamma = float(algo_gamma)
+    return buffer
+
+
 def build(spec: ExperimentSpec, device=None) -> SyncRunner:
     """Resolve a spec into a runner on ``device`` (without driving it).
 
     Params are drawn from a CPU generator seeded ``seed`` (so a seed gives
     the same weights on every device); sampler i's carry from a generator
     on ``device`` seeded ``seed + i``, or one carry seeded ``seed`` for
-    ``env_batch`` collection, as the reference derives its keys.
+    ``env_batch`` collection, as the reference derives its keys; the
+    plane's generator on ``device`` seeded ``seed + _PLANE_SEED_TAG``.
     """
     _validate(spec)
     device = resolve_device(device)
@@ -171,7 +211,7 @@ def build(spec: ExperimentSpec, device=None) -> SyncRunner:
         env = VectorEnv(env, sched.env_batch)
     algo = registry.make("algo", spec.algo,
                          **{**dict(spec.model), **dict(spec.algo_kwargs)})
-    buffer = registry.make("buffer", spec.buffer or algo.default_buffer)
+    buffer = _resolve_buffer(spec, algo)
     kernels_mod.set_kernel_mode(spec.kernels)
     params, opt_state = algo.init(
         torch.Generator().manual_seed(sched.seed), env, device)
@@ -185,8 +225,13 @@ def build(spec: ExperimentSpec, device=None) -> SyncRunner:
                for s in seeds]
     backend = registry.make("backend", spec.backend, rollout=rollout,
                             carries=carries)
+    example = (algo.transition_example(env, device)
+               if buffer.kind == "transitions" else None)
+    plane_generator = torch.Generator(device=device)
+    plane_generator.manual_seed(sched.seed + _PLANE_SEED_TAG)
     return SyncRunner(backend, make_train_step(algo, buffer), params,
-                      opt_state, plane_state=(buffer.init(), None))
+                      opt_state,
+                      plane_state=(buffer.init(example), plane_generator))
 
 
 def run(spec: ExperimentSpec, iterations: Optional[int] = None,

@@ -10,16 +10,28 @@ from repro_torch.kernels.env_step.ops import (  # noqa: F401
     pendulum_step_cuda,
 )
 from repro_torch.kernels.gae.ops import gae_cuda  # noqa: F401
+from repro_torch.kernels.replay_ring.ops import (  # noqa: F401
+    ring_gather_cuda,
+    ring_insert_cuda,
+)
 from repro_torch.kernels.select import (  # noqa: F401
     MODES,
     kernel_mode,
     set_kernel_mode,
+)
+from repro_torch.kernels.sum_tree.ops import (  # noqa: F401
+    sumtree_find_cuda,
+    sumtree_update_cuda,
 )
 
 KERNELS = {
     "pendulum_step": pendulum_step_cuda,
     "cheetah_step": cheetah_step_cuda,
     "gae": gae_cuda,
+    "ring_insert": ring_insert_cuda,
+    "ring_gather": ring_gather_cuda,
+    "sumtree_find": sumtree_find_cuda,
+    "sumtree_update": sumtree_update_cuda,
 }
 
 

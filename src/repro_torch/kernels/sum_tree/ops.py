@@ -1,0 +1,137 @@
+"""The sum-tree ops (port of ``repro/kernels/sum_tree/ops.py``).
+
+The state is ``ref.SumTree``: the flat leaves-first layout the TPU kernels
+take, kept flat on the device, with the levels as views. So no call
+concatenates or splits levels (the reference's ops do, around each kernel).
+A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
+the kernels of ``csrc/sum_tree.cu`` (unless the mode is ``ref``).
+
+``sumtree_update`` writes into the tree in place and returns it.
+
+The kernels replace ``sumtree_find_pallas`` and ``sumtree_update_pallas``
+(``repro/kernels/sum_tree/sum_tree_pallas.py``). Both are exact. The bound
+is HBM bytes of the nodes touched; the descent's time is the latency of
+``log2(cap)`` dependent loads. ``sumtree_find_cuda.launches`` and
+``sumtree_update_cuda.launches`` count their launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, select
+from repro_torch.kernels.sum_tree.ref import (  # noqa: F401
+    SumTree,
+    level_offsets,
+    level_sizes,
+    sumtree_find_batch_ref,
+    sumtree_update_ref,
+    tree_flatten,
+    tree_unflatten,
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("sum_tree")
+    lib.sumtree_find.argtypes = [_P, _P, _P, _L, _I, _I, _P]
+    lib.sumtree_find.restype = _I
+    lib.sumtree_update.argtypes = [_P, _P, _P, _P, _L, _I, _I, _P]
+    lib.sumtree_update.restype = _I
+    return lib
+
+
+def _check(kernel: str, named, device) -> None:
+    """Each ``(name, tensor, shape, dtype)`` must match, be contiguous and
+    lie on the CUDA ``device``."""
+    for name, x, shape, dtype in named:
+        if (tuple(x.shape) != shape or x.dtype != dtype or x.device != device
+                or device.type != "cuda" or not x.is_contiguous()):
+            raise ValueError(
+                f"{kernel} kernel: {name} must be a contiguous {dtype} tensor"
+                f" of shape {shape} on a CUDA device ({device}); got "
+                f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _raise_on(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
+
+
+def sumtree_find_cuda(tree: SumTree, masses: torch.Tensor) -> torch.Tensor:
+    """Launch the descent kernel: masses (B,) float32 -> leaf indices (B,)
+    int32."""
+    cap, dev = tree.capacity, tree.flat.device
+    B = masses.shape[0] if masses.dim() == 1 else -1
+    _check("sumtree_find", [
+        ("flat", tree.flat, (2 * cap - 1,), torch.float32),
+        ("masses", masses, (B,), torch.float32)], dev)
+    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if B == 0:
+        return out
+    rc = _lib().sumtree_find(tree.flat.data_ptr(), masses.data_ptr(),
+                             out.data_ptr(), cap, cap.bit_length() - 1, B,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sumtree_find")
+    sumtree_find_cuda.launches += 1
+    return out
+
+
+sumtree_find_cuda.launches = 0
+
+
+def sumtree_update_cuda(tree: SumTree, idx: torch.Tensor,
+                        values: torch.Tensor) -> SumTree:
+    """Launch the update kernel, in place: idx (B,) int32 (one in
+    ``[-cap, 0)`` counts from the end, one outside ``[-cap, cap)`` is
+    dropped, as in the plain version), values (B,) float32."""
+    cap, dev = tree.capacity, tree.flat.device
+    if cap > 1 << 31:
+        raise ValueError(f"sumtree_update kernel: int32 indices address at "
+                         f"most 2^31 leaves; got capacity {cap}")
+    B = idx.shape[0] if idx.dim() == 1 else -1
+    _check("sumtree_update", [
+        ("flat", tree.flat, (2 * cap - 1,), torch.float32),
+        ("winner", tree.winner, (cap,), torch.int32),
+        ("idx", idx, (B,), torch.int32),
+        ("values", values, (B,), torch.float32)], dev)
+    if B == 0:
+        return tree
+    rc = _lib().sumtree_update(tree.flat.data_ptr(), tree.winner.data_ptr(),
+                               idx.data_ptr(), values.data_ptr(), cap,
+                               cap.bit_length() - 1, B,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "sumtree_update")
+    sumtree_update_cuda.launches += 1
+    return tree
+
+
+sumtree_update_cuda.launches = 0
+
+
+def sumtree_find_batch(tree: SumTree, masses: torch.Tensor, *,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Stratified descent for a batch of masses -> int32 leaf indices."""
+    if not select.use_kernel(impl, tree.flat):
+        return sumtree_find_batch_ref(tree, masses)
+    return sumtree_find_cuda(tree, masses.reshape(-1).to(torch.float32)
+                             .contiguous()).reshape(masses.shape)
+
+
+def sumtree_update(tree: SumTree, idx: torch.Tensor,
+                   leaf_values: torch.Tensor, *,
+                   impl: Optional[str] = None) -> SumTree:
+    """Batched leaf write (last write wins among duplicate indices) and
+    parent recomputation, in place; returns ``tree``."""
+    if not select.use_kernel(impl, tree.flat):
+        return sumtree_update_ref(tree, idx, leaf_values)
+    return sumtree_update_cuda(
+        tree, idx.reshape(-1).to(torch.int32).contiguous(),
+        leaf_values.reshape(-1).to(torch.float32).contiguous())

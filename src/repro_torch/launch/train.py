@@ -10,6 +10,10 @@ Usage:
       --algo ppo --num-samplers 10 --global-batch 160 --horizon 125 \
       --iterations 3 [--env-batch 4096] [--kernels {ref,cuda,auto}] \
       [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
+      --algo sac --buffer prioritized --num-samplers 10 --global-batch 160 \
+      --horizon 125 --replay-capacity 1000000 --replay-batch 256 \
+      [--n-step 3] [--device cpu]
 """
 from __future__ import annotations
 
@@ -22,6 +26,13 @@ from repro_torch.kernels.select import ALIASES, MODES
 
 
 def spec_from_args(args) -> ExperimentSpec:
+    # only the buffer settings the user set reach the spec, so each buffer
+    # kind's own defaults apply
+    buffer_kwargs = {k: v for k, v in [
+        ("capacity", args.replay_capacity),
+        ("batch_size", args.replay_batch),
+        ("n_step", args.n_step),
+    ] if v is not None}
     return ExperimentSpec(
         env=args.env,
         algo=args.algo,
@@ -30,6 +41,7 @@ def spec_from_args(args) -> ExperimentSpec:
         kernels=args.kernels,
         model={"hidden": args.hidden},
         algo_kwargs={} if args.lr is None else {"lr": args.lr},
+        buffer_kwargs=buffer_kwargs,
         schedule=Schedule(
             num_samplers=args.num_samplers,
             global_batch=args.global_batch,
@@ -41,20 +53,31 @@ def spec_from_args(args) -> ExperimentSpec:
     )
 
 
-def run_rl(args) -> None:
+def run_rl(args) -> experiment.ExperimentResult:
     result = experiment.run(spec_from_args(args), device=args.device)
     for log in result.logs:
         print(json.dumps(log.as_dict()), flush=True)
+    return result
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> experiment.ExperimentResult:
+    """Parse ``argv``, run, print the logs; returns the run's result
+    (params and plane state stay readable)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", default="rl",
                     help="'rl' (the 'lm' mode is not ported yet: ROADMAP.md)")
     ap.add_argument("--env", default="pendulum")
     ap.add_argument("--algo", default="ppo")
     ap.add_argument("--backend", default="inline")
-    ap.add_argument("--buffer", default=None)
+    ap.add_argument("--buffer", default=None,
+                    help="experience buffer kind (default: the algo's own, "
+                         "fifo for ppo, uniform for sac)")
+    ap.add_argument("--replay-capacity", type=int, default=None,
+                    help="off-policy buffers: ring capacity")
+    ap.add_argument("--replay-batch", type=int, default=None,
+                    help="off-policy buffers: learner minibatch size")
+    ap.add_argument("--n-step", type=int, default=None,
+                    help="off-policy buffers: n-step return horizon")
     ap.add_argument("--num-samplers", type=int, default=4)
     ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--env-batch", type=int, default=None,
@@ -76,7 +99,7 @@ def main(argv=None) -> None:
     if args.mode != "rl":
         raise SystemExit(f"--mode {args.mode} is not ported to repro_torch "
                          f"yet; see ROADMAP.md")
-    run_rl(args)
+    return run_rl(args)
 
 
 if __name__ == "__main__":

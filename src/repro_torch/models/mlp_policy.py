@@ -25,6 +25,26 @@ def _mlp(sizes) -> nn.ModuleList:
                          for i, o in zip(sizes[:-1], sizes[1:]))
 
 
+def _init_layers(generator: torch.Generator, linears) -> None:
+    """Fan-in truncated-normal weights and zero biases, drawn from
+    ``generator`` layer by layer."""
+    with torch.no_grad():
+        for lyr in linears:
+            w = layers.dense_init(generator,
+                                  (lyr.in_features, lyr.out_features))
+            lyr.weight.copy_(w.T)
+            lyr.bias.zero_()
+
+
+def init_mlp_net(generator: torch.Generator, sizes) -> nn.ModuleList:
+    """An MLP with layer widths ``sizes`` (port of ``init_mlp_net``):
+    ``nn.Linear`` layers initialised by ``_init_layers``; ``mlp_apply``
+    puts tanh between them."""
+    net = _mlp(sizes)
+    _init_layers(generator, net)
+    return net
+
+
 def mlp_apply(net: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
     for i, lyr in enumerate(net):
         x = lyr(x)
@@ -80,10 +100,5 @@ def init_policy(generator: torch.Generator, obs_dim: int, act_dim: int,
     """Fan-in truncated-normal weights, zero biases, ``log_std`` -0.5;
     drawn from ``generator`` (pi layers first, then vf layers)."""
     policy = MLPPolicy(obs_dim, act_dim, hidden, depth)
-    with torch.no_grad():
-        for lyr in list(policy.pi) + list(policy.vf):
-            w = layers.dense_init(generator,
-                                  (lyr.in_features, lyr.out_features))
-            lyr.weight.copy_(w.T)
-            lyr.bias.zero_()
+    _init_layers(generator, list(policy.pi) + list(policy.vf))
     return policy

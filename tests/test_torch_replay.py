@@ -1,0 +1,131 @@
+"""Replay-ring parity: the port's plain versions against the JAX refs
+(``impl="ref"``) at the cases of ``tests/test_kernel_plane.py``, exact.
+Inputs are made with numpy and handed to both sides. Also the port's
+``data/replay.py`` ring state: host-int head and size, the wrap, and the
+empty-ring guard.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.data import replay as jax_replay
+from repro.kernels.replay_ring import ops as jax_ring
+from repro_torch import kernels
+from repro_torch.data import replay
+from repro_torch.kernels.replay_ring import ops as ring
+
+
+def _torch(d):
+    return {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
+
+
+def _assert_equal(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        w = np.asarray(want[k])
+        g = got[k].numpy()
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("cap,n,start", [
+    (17, 5, 0),        # capacity not a power of two
+    (17, 5, 15),       # wraparound
+    (12, 12, 7),       # exactly one full ring, offset start
+    (8, 11, 3),        # n > capacity: self-overwrite, last write wins
+    (1, 1, 0),         # degenerate ring
+    (1, 3, 0),         # n > capacity = 1
+])
+def test_ring_insert_matches_jax(cap, n, start):
+    rng = np.random.default_rng(cap * 100 + n)
+    storage = {"obs": rng.standard_normal((cap, 3)).astype(np.float32),
+               "rewards": np.zeros(cap, np.float32),
+               "flags": rng.random(cap) < 0.5,
+               "steps": rng.integers(0, 9, (cap, 2)).astype(np.int32)}
+    batch = {"obs": rng.standard_normal((n, 3)).astype(np.float32),
+             "rewards": np.arange(n, dtype=np.float32),
+             "flags": rng.random(n) < 0.5,
+             "steps": rng.integers(0, 9, (n, 2)).astype(np.int32)}
+    want = jax_ring.ring_insert(
+        {k: jnp.asarray(v) for k, v in storage.items()},
+        {k: jnp.asarray(v) for k, v in batch.items()}, jnp.int32(start),
+        impl="ref")
+    got_storage = _torch(storage)
+    got = ring.ring_insert(got_storage, _torch(batch), start)
+    assert got is got_storage          # written in place
+    _assert_equal(got, want)
+
+
+def test_ring_insert_casts_to_the_storage_dtype():
+    storage = {"x": torch.zeros(4, dtype=torch.float32)}
+    ring.ring_insert(storage, {"x": torch.tensor([1, 2], dtype=torch.int64)},
+                     3)
+    assert storage["x"].tolist() == [2.0, 0.0, 0.0, 1.0]
+
+
+@pytest.mark.parametrize("cap,B", [(17, 6), (1, 1), (64, 64)])
+def test_ring_gather_matches_jax(cap, B):
+    rng = np.random.default_rng(cap * 7 + B)
+    storage = {"obs": rng.standard_normal((cap, 2, 2)).astype(np.float32),
+               "rewards": rng.standard_normal(cap).astype(np.float32),
+               "flags": rng.random(cap) < 0.5}
+    idx = rng.integers(0, cap, B).astype(np.int32)
+    want = jax_ring.ring_gather({k: jnp.asarray(v) for k, v in
+                                 storage.items()}, jnp.asarray(idx),
+                                impl="ref")
+    got = ring.ring_gather(_torch(storage), torch.from_numpy(idx))
+    assert got["obs"].shape == (B, 2, 2)
+    _assert_equal(got, want)
+
+
+def test_ring_gather_out_of_range_indices_as_jnp():
+    """Negative indices count from the end, then everything is clamped
+    into [0, cap), as jnp indexing does."""
+    storage = np.arange(5, dtype=np.float32)
+    idx = np.array([7, -1, -9, 2, 5], np.int32)
+    want = jax_ring.ring_gather({"x": jnp.asarray(storage)},
+                                jnp.asarray(idx), impl="ref")
+    got = ring.ring_gather({"x": torch.from_numpy(storage)},
+                           torch.from_numpy(idx))
+    _assert_equal(got, want)
+
+
+def test_cpu_tensors_take_the_plain_version_in_cuda_mode():
+    kernels.reset_launch_counts()
+    storage = {"x": torch.zeros(4, 2)}
+    ring.ring_insert(storage, {"x": torch.ones(3, 2)}, 2, impl="cuda")
+    ring.ring_gather(storage, torch.tensor([0, 1], dtype=torch.int32),
+                     impl="cuda")
+    assert kernels.launch_counts()["ring_insert"] == 0
+    assert kernels.launch_counts()["ring_gather"] == 0
+
+
+def test_add_batch_matches_jax_over_wraps():
+    """Three adds into a ring of 7 (the last one wraps): storage, head and
+    size as the reference's, with head and size as host ints."""
+    rng = np.random.default_rng(3)
+    example = {"obs": np.zeros((1, 3), np.float32),
+               "rewards": np.zeros(1, np.float32)}
+    js = jax_replay.init_replay(7, {k: jnp.asarray(v)
+                                    for k, v in example.items()})
+    ts = replay.init_replay(7, _torch(example))
+    for n in (3, 2, 5):
+        batch = {"obs": rng.standard_normal((n, 3)).astype(np.float32),
+                 "rewards": rng.standard_normal(n).astype(np.float32)}
+        js = jax_replay.add_batch(js, {k: jnp.asarray(v)
+                                       for k, v in batch.items()})
+        ts = replay.add_batch(ts, _torch(batch))
+        assert (ts.index, ts.size) == (int(js.index), int(js.size))
+        assert isinstance(ts.index, int) and isinstance(ts.size, int)
+        _assert_equal(ts.storage, js.storage)
+
+
+def test_sample_indices_stay_in_the_filled_prefix():
+    ts = replay.init_replay(64, {"x": torch.zeros(1)})
+    with pytest.raises(ValueError, match="empty replay buffer"):
+        replay.sample_indices(ts, torch.Generator().manual_seed(0), 4)
+    ts = replay.add_batch(ts, {"x": torch.arange(5.0)})
+    idx = replay.sample_indices(ts, torch.Generator().manual_seed(0), 1000)
+    assert idx.dtype == torch.int32
+    assert int(idx.min()) == 0 and int(idx.max()) == 4

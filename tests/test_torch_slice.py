@@ -3,6 +3,12 @@ JAX package (injected action noise and reset candidates), CPU runs of both
 collection modes, the train CLI, the default-device rule, the rejection of
 what is not ported, spec JSON shared with the JAX package, and an import
 scan that keeps ``repro_torch`` free of ``jax`` and ``repro``.
+
+The off-policy slice: one composed SAC × prioritized train step (observe,
+then 4 sample -> learn -> priority updates) on a trajectory the JAX package
+collected, against the JAX step, with the JAX draws injected; CPU runs of
+SAC with both replay buffers through the CLI; ``next_obs`` in the rollout;
+the buffer checks; a SAC spec's JSON shared with the JAX package.
 """
 import ast
 import dataclasses
@@ -18,11 +24,16 @@ import torch
 
 from repro import envs as jax_envs
 from repro import experiment as jax_experiment
+from repro.algos import api as jax_api
+from repro.core import sampler as jax_sampler
+from repro.data import buffers as jax_buffers
 from repro.kernels.env_step import ops as jax_env_ops
 from repro.models import mlp_policy as jax_policy
-from repro_torch import convert, envs, kernels
-from repro_torch.algos.api import PPOAlgorithm
+from repro_torch import convert, envs, kernels, registry
+from repro_torch.algos import sac
+from repro_torch.algos.api import PPOAlgorithm, make_train_step
 from repro_torch.core import sampler
+from repro_torch.data import buffers
 from repro_torch.experiment import ExperimentSpec, Schedule, build, run
 from repro_torch.launch import train
 
@@ -143,7 +154,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     dict(runtime="fused"), dict(runtime="async"), dict(backend="process"),
-    dict(algo="sac"), dict(env="cartpole"), dict(buffer="uniform"),
+    dict(algo="ddpg"), dict(env="cartpole"), dict(algo="trpo"),
     dict(staleness="decay"), dict(algo_kwargs={"aux_coef": 0.1}),
     dict(schedule=Schedule(learner_devices=2)),
     dict(schedule=Schedule(overlap=True)),
@@ -152,6 +163,24 @@ def test_unported_choices_are_rejected(change):
     spec = ExperimentSpec(**{"env": "cheetah", **change})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build(spec, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(algo="ppo", buffer="uniform"),
+    dict(algo="ppo", buffer="prioritized"),
+    dict(algo="sac", buffer="fifo"),
+    dict(algo="sac", buffer="uniform", buffer_kwargs={"gamma": 0.9}),
+])
+def test_buffer_mismatch_raises_value_error(change):
+    """As the reference's ``_resolve_buffer``: an on-policy algo takes only
+    a trajectory buffer, an off-policy one only a replay buffer, and the
+    discount comes from the algo, never from ``buffer_kwargs``."""
+    spec = ExperimentSpec(env="cheetah", **change)
+    with pytest.raises(ValueError):
+        build(spec, device="cpu")
+    with pytest.raises(ValueError):
+        jax_experiment.build(jax_experiment.ExperimentSpec.from_dict(
+            spec.to_dict()))
 
 
 def test_spec_json_is_shared_with_jax():
@@ -189,3 +218,149 @@ def test_port_imports_neither_jax_nor_repro():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro", "flax", "optax"), (
                 f"{f.relative_to(ROOT)} imports {mod}")
+
+
+# ------------------------------------------------------- off-policy slice
+def test_rollout_records_next_obs():
+    env = envs.make("cheetah", max_episode_steps=3)
+    algo = sac.SACAlgorithm(hidden=8)
+    params, _ = algo.init(torch.Generator().manual_seed(0), env, "cpu")
+    carry = sampler.init_env_carry(env, 1, 4, "cpu")
+    _, traj = sampler.make_algo_rollout(algo, env, 5)(params, carry)
+    assert set(traj) == {"obs", "actions", "rewards", "dones", "next_obs"}
+    assert traj["next_obs"].shape == traj["obs"].shape == (5, 4, 14)
+    # next_obs is the next step's obs (post-reset where an episode ended)
+    assert torch.equal(traj["next_obs"][:-1], traj["obs"][1:])
+    assert traj["dones"].any()
+
+
+class _InjectedSAC(sac.SACAlgorithm):
+    """SAC whose ``sample`` takes the next injected draw (stratified
+    uniforms and the two learner noises) instead of the generator's."""
+
+    def __init__(self, draws, **kwargs):
+        super().__init__(**kwargs)
+        self.draws = iter(draws)
+
+    def sample(self, buffer, state, generator):
+        u, noise_next, noise_new = next(self.draws)
+        batch = buffer.sample_with(state, u)
+        batch["noise_next"], batch["noise_new"] = noise_next, noise_new
+        return batch
+
+
+def test_sac_prioritized_train_step_matches_jax():
+    """One composed step on a JAX-collected cheetah trajectory. Bounds:
+    the replay ring exactly; params within 2e-5 (4 Adam steps on each
+    loss, gradients differing in their last bits, as in
+    ``tests/test_torch_ppo.py``); the tree within ``rtol=1e-5`` (its
+    leaves are ``(|td| + eps) ** alpha`` of the learner's TD errors); the
+    metrics within ``rtol=1e-4``. Params this close after 4 updates also
+    mean that both sides drew the same minibatches."""
+    T, N, CAP, BATCH, HIDDEN = 16, 4, 256, 32, 32
+    jenv = jax_envs.make("cheetah", max_episode_steps=10)
+    jalgo = jax_api.registry.make("algo", "sac", hidden=HIDDEN)
+    jbuf = jax_buffers.PrioritizedBuffer(capacity=CAP, batch_size=BATCH)
+    params, opt_state = jalgo.init(jax.random.PRNGKey(0), jenv)
+    carry = jax_sampler.init_env_carry(jenv, jax.random.PRNGKey(1), N)
+    _, traj = jax.jit(jax_sampler.make_algo_rollout(jalgo, jenv, T))(
+        params, carry)
+    assert np.asarray(traj["dones"]).any()
+    key = jax.random.PRNGKey(2)
+    plane = (jbuf.init(jalgo.transition_example(jenv)), key)
+    p_j, s_j, (b_j, _), m_j = jax.jit(jax_api.make_train_step(jalgo, jbuf))(
+        params, opt_state, plane, traj)
+
+    # the draws the JAX step made: one key per update, split into the
+    # buffer's and the learner's, the learner's into k_next and k_new
+    draws = []
+    for k in jax.random.split(key, 5)[1:]:
+        k_buf, k_learn = jax.random.split(k)
+        k_next, k_new = jax.random.split(k_learn)
+        draws.append(tuple(torch.from_numpy(np.array(x)) for x in (
+            jax.random.uniform(k_buf, (BATCH,)),
+            jax.random.normal(k_next, (BATCH, 6)),
+            jax.random.normal(k_new, (BATCH, 6)))))
+    env = envs.make("cheetah", max_episode_steps=10)
+    algo = _InjectedSAC(draws, hidden=HIDDEN)
+    tbuf = buffers.PrioritizedBuffer(capacity=CAP, batch_size=BATCH)
+    plane_t = (tbuf.init(algo.transition_example(env, "cpu")), None)
+    indices = []
+    update = tbuf.update_priorities
+
+    def record(state, idx, prio):
+        indices.append(idx.clone())
+        return update(state, idx, prio)
+
+    tbuf.update_priorities = record
+    p_t, s_t, (b_t, _), m_t = make_train_step(algo, tbuf)(
+        convert.sac_params_from_jax(jax.tree.map(np.asarray, params)),
+        convert.sac_adam_states_from_jax(jax.tree.map(np.asarray,
+                                                      opt_state)),
+        plane_t, {k: torch.from_numpy(np.array(v)) for k, v in traj.items()})
+
+    assert len(indices) == 4 and s_t[0].step == 4
+    for k, v in b_t.ring.storage.items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(b_j.ring.storage[k]))
+    for g, w in zip(b_t.tree.levels, b_j.tree.levels):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
+    for g, w in zip(jax.tree.leaves(convert.sac_params_to_jax(p_t)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, p_j))):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-5)
+    for k in m_j:
+        np.testing.assert_allclose(float(m_t[k]), float(m_j[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("buffer", ["uniform", "prioritized"])
+def test_sac_train_cli_cpu(capsys, buffer):
+    kernels.reset_launch_counts()
+    train.main(["--env", "cheetah", "--algo", "sac", "--buffer", buffer,
+                "--device", "cpu", "--num-samplers", "2", "--global-batch",
+                "8", "--horizon", "16", "--iterations", "2",
+                "--replay-capacity", "1024", "--replay-batch", "32"])
+    logs = [json.loads(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [lg["iteration"] for lg in logs] == [0, 1]
+    for lg in logs:
+        assert lg["samples"] == 8 * 16
+        assert all(math.isfinite(lg[k]) for k in
+                   ("mean_return", "collect_time", "learn_time"))
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+
+
+def test_sac_cpu_run_is_seeded():
+    spec = ExperimentSpec(
+        env="pendulum", algo="sac", buffer="prioritized",
+        buffer_kwargs={"capacity": 100, "batch_size": 16, "n_step": 2},
+        model={"hidden": 16}, env_kwargs={"max_episode_steps": 10},
+        schedule=Schedule(num_samplers=2, global_batch=4, horizon=12,
+                          iterations=2))
+    first, again = run(spec, device="cpu"), run(spec, device="cpu")
+    assert all(lg.mean_return != 0.0 for lg in first.logs)
+    ring, tree, _ = first.runner.plane_state[0]
+    assert tree.capacity == 128 and ring.size == 2 * 4 * 11
+    assert float(tree.total) > 0.0
+    for a, b in zip(first.params.parameters(), again.params.parameters()):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert torch.equal(tree.flat, again.runner.plane_state[0].tree.flat)
+
+
+def test_sac_spec_json_is_shared_with_jax():
+    jspec = jax_experiment.ExperimentSpec(
+        env="cheetah", algo="sac", buffer="prioritized",
+        buffer_kwargs={"capacity": 64, "batch_size": 8, "n_step": 3},
+        model={"hidden": 16},
+        schedule=jax_experiment.Schedule(num_samplers=2, global_batch=4,
+                                         horizon=6, iterations=1))
+    d = json.loads(json.dumps(jspec.to_dict()))
+    spec = ExperimentSpec.from_dict(d)
+    assert spec.to_dict() == d
+    assert jax_experiment.ExperimentSpec.from_dict(
+        json.loads(json.dumps(spec.to_dict()))) == jspec
+    result = run(spec, device="cpu")
+    assert result.logs[0].samples == 24
+    ring = result.runner.plane_state[0].ring
+    assert ring.size == 4 * 4 and ring.storage["obs"].shape == (64, 14)
+    assert result.params.actor[0].out_features == 16
+    assert "sac" in registry.choices("algo")

@@ -11,11 +11,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
 3. kernels: each kernel's wrapper on card tensors at the shapes the main
    path gives it (and a larger env batch with a third of the rows at their
    last step, so the reset select fires), held against its plain PyTorch
-   version on the same inputs: ``t``/``done`` and GAE exactly, env float
-   leaves within 4 ulp (or 4 ulp of the leaf's magnitude near zero); the
-   replay ring (N > cap, wraparound, cap 1, float, bool and int rows) and
-   the sum tree (capacities 1, 2, 1024 and 2^20, zero-mass leaves, updates
-   with duplicate indices) exactly;
+   version on the same inputs: ``t``/``done``, GAE and the discounted
+   returns (T × B = 1 × 1, 125 × 160, 128 × 4096, a ragged 125 × 163, 0 × 5)
+   exactly, env float leaves within 4 ulp (or 4 ulp of the leaf's magnitude
+   near zero; cart-pole at B = 1, 16, 700 and 4096 with poles falling and a
+   reward scale of 0.5); the replay ring (N > cap, wraparound, cap 1,
+   float, bool and int rows) and the sum tree (capacities 1, 2, 1024 and
+   2^20, zero-mass leaves, updates with duplicate indices) exactly;
 4. main path, each run with the launch counts set to 0 just before it and
    read just after: PPO on cheetah through the train CLI with the paper's
    budget (10 samplers × 16 envs × 125 steps = 20,000 samples per
@@ -24,14 +26,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    125, 2 iterations); then SAC on cheetah through the train CLI with
    prioritized replay (the same budget, 3 iterations; replay capacity
    1,000,000, i.e. 2^20 slots, and minibatch 256, the SAC paper's), and SAC
-   on pendulum with uniform replay (2 iterations). Every log must be
-   finite with the expected sample count, and each kernel's count must
-   equal the steps, learns, inserts, draws and priority updates the run
-   made;
-5. reference: a small PPO run and a small SAC prioritized run with the
-   kernels, and the same runs with the plain versions (``kernels="ref"``),
-   must end with the same weights (SAC: bit for bit, its replay ring and
-   tree too);
+   on pendulum with uniform replay (2 iterations); then, through the train
+   CLI, PPO on cart-pole (10 × 16 × 125, 3 iterations, and one 4096-env
+   batch × 128 steps, 2 iterations), TRPO on cheetah (10 × 16 × 125, 3
+   iterations) and DDPG on cheetah with prioritized replay (the SAC run's
+   budget and replay, 3 iterations). Every log must be finite with the
+   expected sample count, and each kernel's count must equal the steps,
+   learns, inserts, draws and priority updates the run made;
+5. reference: small PPO, SAC prioritized, TRPO cart-pole and DDPG
+   prioritized pendulum runs with the kernels, and the same runs with the
+   plain versions (``kernels="ref"``), must end with the same weights bit
+   for bit (with the SAC and DDPG replay rings and trees too);
 6. timings: each kernel's median time per call (CUDA events around
    back-to-back calls, host launch included) and its device time alone
    (calls captured in a CUDA graph and replayed), the same two for its
@@ -43,7 +48,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    computes the same function (``index_copy_`` for the ring insert,
    ``index_select`` for the gather), that call's time, printed as one JSON
    line ``{"kernels": [...]}``. A replay-ring time covers one call of the
-   op over the 5 stored leaves (5 launches).
+   op over the 5 stored leaves (5 launches). The discounted returns lie on
+   no path (neither package calls them outside tests and benchmarks); they
+   are timed at the GAE shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero at once.
@@ -51,6 +58,7 @@ every phase passed. Without a CUDA device the script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -74,13 +82,15 @@ ENV_ULPS = 4
 # (adds, multiplies, divides, transcendentals and clamps, one each)
 # (ring ops: none; tree ops per node visited: a compare, a subtract and a
 # select on the way down, one add per parent on the way up)
-OPS = {"pendulum_step": 30, "cheetah_step": 150, "gae": 7,
-       "ring_insert": 0, "ring_gather": 0, "sumtree_find": 3,
-       "sumtree_update": 1}
+OPS = {"pendulum_step": 30, "cartpole_step": 40, "cheetah_step": 150,
+       "gae": 7, "discounted_returns": 4, "ring_insert": 0, "ring_gather": 0,
+       "sumtree_find": 3, "sumtree_update": 1}
 REPLACES = {
     "pendulum_step": "src/repro/kernels/env_step/env_step_pallas.py:102",
+    "cartpole_step": "src/repro/kernels/env_step/env_step_pallas.py:177",
     "cheetah_step": "src/repro/kernels/env_step/env_step_pallas.py:254",
     "gae": "src/repro/kernels/gae/gae_pallas.py:117",
+    "discounted_returns": "src/repro/kernels/gae/gae_pallas.py:150",
     "ring_insert": "src/repro/kernels/replay_ring/replay_ring_pallas.py:56",
     "ring_gather": "src/repro/kernels/replay_ring/replay_ring_pallas.py:77",
     "sumtree_find": "src/repro/kernels/sum_tree/sum_tree_pallas.py:103",
@@ -88,8 +98,10 @@ REPLACES = {
 }
 SOURCES = {
     "pendulum_step": "src/repro_torch/kernels/csrc/env_step.cu",
+    "cartpole_step": "src/repro_torch/kernels/csrc/env_step.cu",
     "cheetah_step": "src/repro_torch/kernels/csrc/env_step.cu",
     "gae": "src/repro_torch/kernels/csrc/gae.cu",
+    "discounted_returns": "src/repro_torch/kernels/csrc/gae.cu",
     "ring_insert": "src/repro_torch/kernels/csrc/replay_ring.cu",
     "ring_gather": "src/repro_torch/kernels/csrc/replay_ring.cu",
     "sumtree_find": "src/repro_torch/kernels/csrc/sum_tree.cu",
@@ -163,6 +175,14 @@ def env_inputs(name, B, horizon, seed):
         reset = (f(B, lo=-math.pi, hi=math.pi), f(B), rt)
         return (state, f(B, 1, lo=-3, hi=3), reset, f(B, 3),
                 dict(max_torque=2.0))
+    if name == "cartpole":
+        # x and th around their limits (2.4, 12 degrees): poles fall and
+        # carts leave the track; actions beyond the force clip
+        state = (f(B, lo=-2.5, hi=2.5), f(B, lo=-2, hi=2),
+                 f(B, lo=-0.25, hi=0.25), f(B, lo=-2, hi=2), t)
+        reset = tuple(f(B, lo=-0.05, hi=0.05) for _ in range(4)) + (rt,)
+        return state, f(B, 1, lo=-2, hi=2), reset, f(B, 4), dict(
+            force_max=10.0)
     state = (f(B, 6), f(B, 6), f(B, lo=-2, hi=2), f(B), t)
     reset = (f(B, 6, lo=-0.1, hi=0.1), f(B, 6, lo=-0.1, hi=0.1),
              torch.zeros(B, device=dev), torch.zeros(B, device=dev), rt)
@@ -359,6 +379,22 @@ def main() -> int:
             assert int(done.sum()) >= B // 3, "reset select did not fire"
             log(f"check {key} B={B}: max {u} ulp, max abs err {e:.3g}, "
                 f"{int(done.sum())} resets")
+    for B in (1, 16, 700, 4096):
+        state, a, rs, ro, p = env_inputs("cartpole", B, horizon, seed=B + 1)
+        params = dict(max_episode_steps=horizon, reward_scale=0.5, **p)
+        got = env_ops.cartpole_step_cuda(state, a, rs, ro, **params)
+        want = env_ref.cartpole_step_batch_ref(state, a, rs, ro, **params)
+        torch.cuda.synchronize()
+        u, e = compare(f"cartpole B={B}", leaves(got), leaves(want),
+                       ENV_ULPS)
+        key = "cartpole_step"
+        errs[key] = (max(errs[key][0], u), max(errs[key][1], e))
+        done = got[3]
+        fell = int((done & (state[4] + 1 < horizon)).sum())
+        assert int(done.sum()) >= B // 3 and (B < 16 or fell > 0), (
+            "cart-pole: no reset or no fall")
+        log(f"check {key} B={B}: max {u} ulp, max abs err {e:.3g}, "
+            f"{int(done.sum())} resets ({fell} falls)")
     for T, B in ((125, 160), (128, 4096), (125, 160 + 3)):
         r, v, d, lv = gae_inputs(T, B, seed=T * B)
         got = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
@@ -367,6 +403,15 @@ def main() -> int:
         u, e = compare(f"gae {T}x{B}", got, want, 0)
         errs["gae"] = (max(errs["gae"][0], u), max(errs["gae"][1], e))
         log(f"check gae T={T} B={B}: exact (max {u} ulp)")
+    for T, B in ((1, 1), (125, 160), (128, 4096), (125, 160 + 3), (0, 5)):
+        r, _, d, lv = gae_inputs(T, B, seed=T * B + 1)
+        got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+        want = gae_ops.discounted_returns_ref(r, d, lv, 0.99)
+        torch.cuda.synchronize()
+        u, e = compare(f"discounted_returns {T}x{B}", [got], [want], 0)
+        key = "discounted_returns"
+        errs[key] = (max(errs[key][0], u), max(errs[key][1], e))
+        log(f"check {key} T={T} B={B}: exact (max {u} ulp)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -528,54 +573,114 @@ def main() -> int:
         for p in res.params.parameters():
             assert torch.isfinite(p).all(), "non-finite SAC weights"
 
-    # 5. reference: kernels vs plain versions end to end on a small run
+    # slice 3: cart-pole, TRPO and DDPG through the train CLI
+    def finite_params(label):
+        for p in cli.result.params.parameters():
+            assert torch.isfinite(p).all(), f"{label}: non-finite weights"
+
+    label = "ppo cartpole N=10"
+    logs = counted(label, lambda: cli(
+        ["--env", "cartpole", "--algo", "ppo", "--num-samplers", str(n),
+         "--global-batch", str(n * per), "--horizon", str(h),
+         "--iterations", "3"]))
+    check_logs(label, logs, 3, n * per * h)
+    assert all(lg["mean_return"] > 0.0 for lg in logs), "no pole fell"
+    assert runs[label] == zero_counts(cartpole_step=3 * n * h, gae=3), runs
+    finite_params(label)
+
+    label = "ppo cartpole vector B=4096"
+    logs = counted(label, lambda: cli(
+        ["--env", "cartpole", "--algo", "ppo", "--env-batch", "4096",
+         "--horizon", "128", "--iterations", "2"]))
+    check_logs(label, logs, 2, 4096 * 128)
+    assert all(lg["mean_return"] > 0.0 for lg in logs), "no pole fell"
+    assert runs[label] == zero_counts(cartpole_step=2 * 128, gae=2), runs
+    finite_params(label)
+
+    label = "trpo cheetah N=10"
+    logs = counted(label, lambda: cli(
+        ["--env", "cheetah", "--algo", "trpo", "--num-samplers", str(n),
+         "--global-batch", str(n * per), "--horizon", str(h),
+         "--iterations", "3"]))
+    check_logs(label, logs, 3, n * per * h)
+    assert runs[label] == zero_counts(cheetah_step=3 * n * h, gae=3), runs
+    assert cli.result.runner.opt_state is None
+    finite_params(label)
+
+    label = "ddpg cheetah N=10 prioritized"
+    logs = counted(label, lambda: cli(
+        ["--env", "cheetah", "--algo", "ddpg", "--buffer", "prioritized",
+         "--num-samplers", str(n), "--global-batch", str(n * per),
+         "--horizon", str(h), "--iterations", "3",
+         "--replay-capacity", "1000000", "--replay-batch", "256"]))
+    check_logs(label, logs, 3, n * per * h)
+    assert runs[label] == zero_counts(
+        cheetah_step=3 * n * h, ring_insert=3 * n_leaves,
+        ring_gather=3 * n_leaves * updates, sumtree_find=3 * updates,
+        sumtree_update=3 * (1 + updates)), runs
+    ring, tree, max_p = cli.result.runner.plane_state[0]
+    assert tree.capacity == CAP and ring.size == 3 * n * per * h
+    assert int((tree.levels[0] > 0).sum()) == ring.size
+    assert math.isclose(float(tree.total),
+                        float(tree.levels[0].double().sum()), rel_tol=1e-4)
+    assert math.isfinite(float(max_p)) and float(max_p) >= 1.0
+    finite_params(label)
+    log(f"  ddpg prioritized: ring {ring.size} of {CAP}, tree total "
+        f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
+
+    # 5. reference: kernels vs plain versions end to end on small runs
+    def cuda_vs_ref(label, spec, plane=lambda res: []):
+        """Run ``spec`` with the kernels and with the plain versions; the
+        kernels must have launched only in the first, episodes must have
+        ended in every iteration, and the final weights (and
+        ``plane(result)``'s tensors) must be bit for bit equal."""
+        finals = {}
+        for mode in ("cuda", "ref"):
+            kernels.reset_launch_counts()
+            res = run(dataclasses.replace(spec, kernels=mode))
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            assert (sum(counts.values()) > 0) == (mode == "cuda"), counts
+            finals[mode] = ([p.detach().clone()
+                             for p in res.params.parameters()]
+                            + [x.clone() for x in plane(res)],
+                            [lg.mean_return for lg in res.logs])
+        (got, got_ret), (want, want_ret) = finals["cuda"], finals["ref"]
+        assert got_ret == want_ret and all(r != 0.0 for r in got_ret), (
+            label, got_ret, want_ret)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+            f"{label}: cuda vs ref differ")
+        log(f"reference: {label}, cuda vs ref kernels: {len(got)} tensors "
+            f"bit for bit equal, mean returns {got_ret}")
+
+    def replay_plane(res):
+        """The replay ring's leaves, the tree and the max priority."""
+        ring, tree, max_p = res.runner.plane_state[0]
+        return [tree.flat, max_p, *ring.storage.values()]
+
     small = Schedule(num_samplers=2, global_batch=8, horizon=40,
                      iterations=2)
-    finals = {}
-    for mode in ("cuda", "ref"):
-        res = run(ExperimentSpec(env="cheetah", algo="ppo", kernels=mode,
-                                 env_kwargs={"max_episode_steps": 25},
-                                 schedule=small))
-        finals[mode] = [p.detach().clone() for p in res.params.parameters()]
-        finals[mode + " return"] = [lg.mean_return for lg in res.logs]
-    assert finals["cuda return"] == finals["ref return"], finals
-    assert all(r != 0.0 for r in finals["cuda return"]), "no episode ended"
-    diff = max(float((a - b).abs().max())
-               for a, b in zip(finals["cuda"], finals["ref"]))
-    log(f"reference: cuda vs ref kernels, mean returns "
-        f"{finals['cuda return']}, final weights max abs diff {diff}")
-    assert diff <= 1e-5, diff
-
-    sac_finals = {}
-    for mode in ("cuda", "ref"):
-        kernels.reset_launch_counts()
-        res = run(ExperimentSpec(
-            env="cheetah", algo="sac", buffer="prioritized", kernels=mode,
-            buffer_kwargs={"capacity": 4096, "batch_size": 64},
-            env_kwargs={"max_episode_steps": 25}, schedule=small))
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        assert (sum(counts.values()) > 0) == (mode == "cuda"), counts
-        ring, tree, max_p = res.runner.plane_state[0]
-        sac_finals[mode] = ([p.detach().clone()
-                             for p in res.params.parameters()]
-                            + [tree.flat.clone(), max_p.clone()]
-                            + [v.clone() for v in ring.storage.values()],
-                            [lg.mean_return for lg in res.logs])
-    (got, got_ret), (want, want_ret) = sac_finals["cuda"], sac_finals["ref"]
-    assert got_ret == want_ret and all(r != 0.0 for r in got_ret), (
-        got_ret, want_ret)
-    assert all(torch.equal(a, b) for a, b in zip(got, want)), (
-        "SAC cuda vs ref: weights, tree or ring differ")
-    log(f"reference: SAC prioritized, cuda vs ref kernels: weights, tree and "
-        f"ring bit for bit equal, mean returns {got_ret}")
+    cuda_vs_ref("PPO cheetah", ExperimentSpec(
+        env="cheetah", algo="ppo", env_kwargs={"max_episode_steps": 25},
+        schedule=small))
+    cuda_vs_ref("SAC prioritized cheetah", ExperimentSpec(
+        env="cheetah", algo="sac", buffer="prioritized",
+        buffer_kwargs={"capacity": 4096, "batch_size": 64},
+        env_kwargs={"max_episode_steps": 25}, schedule=small), replay_plane)
+    cuda_vs_ref("TRPO cartpole", ExperimentSpec(
+        env="cartpole", algo="trpo", schedule=Schedule(
+            num_samplers=2, global_batch=16, horizon=60, iterations=2)))
+    cuda_vs_ref("DDPG prioritized pendulum", ExperimentSpec(
+        env="pendulum", algo="ddpg", buffer="prioritized",
+        buffer_kwargs={"capacity": 4096, "batch_size": 64},
+        env_kwargs={"max_episode_steps": 25}, schedule=small), replay_plane)
 
     # 6. timings at the main path's shapes (10 samplers of 16 envs), and at
     # the vector path's
     timings = {}
     for label, B, T, gB in (("main", per, h, n * per),
                             ("vector", 4096, 128, 4096)):
-        for name in ("pendulum", "cheetah"):
+        for name in ("pendulum", "cartpole", "cheetah"):
             state, a, rs, ro, p = env_inputs(name, B, horizon, seed=7)
             params = dict(max_episode_steps=horizon, reward_scale=1.0, **p)
             wrapper = kernels.KERNELS[f"{name}_step"]
@@ -596,6 +701,12 @@ def main() -> int:
             "gae", f"T={T} B={gB}", T * gB, nbytes(r, v, d, lv, adv, ret),
             lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95),
             lambda: gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95), 200, 5)
+        ret = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+        timings[label, "discounted_returns"] = measure(
+            "discounted_returns", f"T={T} B={gB}", T * gB,
+            nbytes(r, d, lv, ret),
+            lambda: gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99),
+            lambda: gae_ops.discounted_returns_ref(r, d, lv, 0.99), 200, 5)
     # the replay path at the SAC cheetah run's shapes: 20,000 transitions
     # of 144 B inserted into 2^20 slots, 256 drawn from 60,000 filled ones
     n_rows, B = n * per * h, 256

@@ -1,6 +1,5 @@
 """The ``Algorithm`` seam between learners and the runtime (port of
-``repro/algos/api.py``; PPO and SAC, the other algorithms are in
-ROADMAP.md).
+``repro/algos/api.py``: PPO, TRPO, DDPG and SAC).
 
 An algorithm provides ``init(generator, env, device) -> (params,
 opt_state)``, ``learn(params, opt_state, batch) -> (params, opt_state,
@@ -8,17 +7,24 @@ metrics)`` and ``act(params, obs, noise) -> (action, extras)``, where
 ``noise`` is the standard-normal draw that stands in for the reference's
 PRNG key. ``make_train_step`` composes it with a buffer into the step the
 runner drives. Off-policy algorithms (``OffPolicyAlgorithm``) record
-``next_obs``, learn from replay minibatches, and draw their learner noise
-from the plane's generator.
+``next_obs``, learn from replay minibatches, and draw the learner noise
+they name in ``learner_noise`` from the plane's generator.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 
 from repro_torch import registry
+from repro_torch.algos.ddpg import (
+    DDPGConfig,
+    ddpg_update,
+    explore_action,
+    init_ddpg,
+)
 from repro_torch.algos.ppo import PPOConfig, make_mlp_learner, mean_metrics
+from repro_torch.algos.trpo import TRPOConfig, make_trpo_learner
 from repro_torch.core import sampler as sampler_mod
 from repro_torch.models import mlp_policy
 from repro_torch.optim import adam
@@ -51,13 +57,15 @@ class AlgorithmBase:
 class OffPolicyAlgorithm(AlgorithmBase):
     """Shared plane wiring for replay-based learners: full transitions
     (``next_obs``) recorded at collect time, the transition schema buffers
-    allocate, and the learner noise drawn with each sampled batch.
-    Staleness correction is not ported (``experiment`` rejects it)."""
+    allocate, and the learner noise drawn with each sampled batch (the
+    keys in ``learner_noise``; none for DDPG). Staleness correction is not
+    ported (``experiment`` rejects it)."""
 
     on_policy = False
     needs_next_obs = True
     default_buffer = "uniform"
     updates_per_collect = 4
+    learner_noise: Tuple[str, ...] = ()
 
     def transition_example(self, env, device) -> Dict[str, torch.Tensor]:
         """One zeroed transition on ``device``: the storage schema."""
@@ -71,12 +79,12 @@ class OffPolicyAlgorithm(AlgorithmBase):
                 "dones": zeros(1, dtype=torch.bool)}
 
     def sample(self, buffer, state, generator):
-        """The buffer's batch, then the learner noise ``noise_next`` and
-        ``noise_new`` (B, act_dim), drawn from ``generator`` after the
-        buffer's draws (the reference passes a key as ``batch["rng"]``)."""
+        """The buffer's batch, then one standard-normal (B, act_dim) draw
+        per key of ``learner_noise``, from ``generator`` after the buffer's
+        draws (the reference passes a key as ``batch["rng"]``)."""
         batch = buffer.sample(state, generator)
         shape = tuple(batch["actions"].shape)
-        for k in ("noise_next", "noise_new"):
+        for k in self.learner_noise:
             batch[k] = torch.randn(shape, generator=generator,
                                    device=generator.device)
         return batch
@@ -158,6 +166,64 @@ class PPOAlgorithm(GaussianMLPAlgorithm):
         return self._learn(params, opt_state, traj)
 
 
+class TRPOAlgorithm(GaussianMLPAlgorithm):
+    """Natural-gradient TRPO on the same policy and value model and
+    trajectory layout as PPO, so it shares PPO's rollout. It keeps no
+    optimizer state."""
+
+    name = "trpo"
+
+    def __init__(self, lr: float = None, hidden: int = 64, **cfg_kwargs):
+        if lr is not None:
+            cfg_kwargs.setdefault("vf_lr", lr)
+        self.cfg = TRPOConfig(**cfg_kwargs)
+        self.hidden = hidden
+        self._learn = make_trpo_learner(self.cfg)
+
+    def init(self, generator, env, device):
+        """Params drawn from ``generator`` (a CPU generator, so a seed gives
+        the same weights on every device), then moved to ``device``."""
+        return self._init_policy(generator, env, device), None
+
+    def learn(self, params, opt_state, traj):
+        return self._learn(params, opt_state, traj)
+
+
+class DDPGAlgorithm(OffPolicyAlgorithm):
+    """DDPG on the experience plane: the collect path records full
+    transitions and each ``learn`` consumes one replay minibatch (uniform
+    or prioritized, any ``n_step``). ``opt_state`` is the two Adam states
+    (actor, critic)."""
+
+    name = "ddpg"
+
+    def __init__(self, lr: float = None, hidden: int = 64,
+                 updates_per_collect: int = 4, **cfg_kwargs):
+        if lr is not None:
+            cfg_kwargs.setdefault("actor_lr", lr)
+            cfg_kwargs.setdefault("critic_lr", lr)
+        self.cfg = DDPGConfig(**cfg_kwargs)
+        self.hidden = hidden
+        self.updates_per_collect = updates_per_collect
+        self._a_opt = adam(self.cfg.actor_lr)
+        self._c_opt = adam(self.cfg.critic_lr)
+
+    def init(self, generator, env, device):
+        """Params drawn from ``generator`` (a CPU generator, so a seed gives
+        the same weights on every device), then moved to ``device``."""
+        params = init_ddpg(generator, env.obs_dim, env.act_dim,
+                           hidden=self.hidden).to(device)
+        return params, (self._a_opt.init(list(params.actor.parameters())),
+                        self._c_opt.init(list(params.critic.parameters())))
+
+    def learn(self, params, opt_state, batch):
+        return ddpg_update(params, opt_state, batch, self.cfg, self._a_opt,
+                           self._c_opt)
+
+    def act(self, params, obs, noise):
+        return explore_action(params, obs, noise, self.cfg), {}
+
+
 def _make_sac(**kwargs):
     # lazy, so that api <-> sac imports never cycle (sac subclasses
     # OffPolicyAlgorithm from this module)
@@ -166,4 +232,6 @@ def _make_sac(**kwargs):
 
 
 registry.register("algo", "ppo", PPOAlgorithm)
+registry.register("algo", "trpo", TRPOAlgorithm)
+registry.register("algo", "ddpg", DDPGAlgorithm)
 registry.register("algo", "sac", _make_sac)

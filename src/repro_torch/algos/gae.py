@@ -1,12 +1,14 @@
 """Generalised advantage estimation, the learner-facing entry point (port of
 ``repro/algos/gae.py``, single-device branch). The recurrence is the
-``gae`` op of the kernel plane (``kernels/gae``)."""
+``gae`` op of the kernel plane (``kernels/gae``), which also holds the
+re-exported ``discounted_returns``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.gae import discounted_returns  # noqa: F401
 from repro_torch.kernels.gae import gae as _gae_op
 
 

@@ -165,6 +165,7 @@ class SACAlgorithm(OffPolicyAlgorithm):
     ``OffPolicyAlgorithm``."""
 
     name = "sac"
+    learner_noise = ("noise_next", "noise_new")
 
     def __init__(self, lr: float = None, hidden: int = 64,
                  updates_per_collect: int = 4, **cfg_kwargs):

@@ -2,13 +2,17 @@
 
 The reference's MLPs are lists of ``{"w", "b"}`` layers with ``w`` of shape
 ``(in, out)`` for ``x @ w``; the port's ``nn.Linear`` weight is ``(out,
-in)``, so ``w`` is transposed on the way in and out. Two param trees are
+in)``, so ``w`` is transposed on the way in and out. Three param trees are
 mapped:
 
-* PPO's ``{"pi": [...], "log_std", "vf": [...]}`` onto ``MLPPolicy``;
+* PPO's and TRPO's ``{"pi": [...], "log_std", "vf": [...]}`` onto
+  ``MLPPolicy``;
 * SAC's ``{"actor": [...], "critic": {"q1", "q2"}, "target_critic":
   {"q1", "q2"}, "log_alpha"}`` onto ``SACParams``, with its three Adam
-  states (actor, critic, temperature).
+  states (actor, critic, temperature);
+* DDPG's ``{"actor", "critic", "target_actor", "target_critic"}`` (each a
+  list of layers) onto ``DDPGParams``, with its two Adam states (actor,
+  critic).
 
 Adam moments are lists in the order of the port's parameters (each layer's
 weight, then bias). Inputs and outputs are numpy arrays (any array type
@@ -21,7 +25,7 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.algos import sac
+from repro_torch.algos import ddpg, sac
 from repro_torch.models.mlp_policy import MLPPolicy
 from repro_torch.optim.adam import AdamState
 
@@ -155,3 +159,39 @@ def sac_adam_states_to_jax(states) -> Tuple[Tuple[int, Any, Any], ...]:
     mus = trees([_numpy(s.mu) for s in states])
     nus = trees([_numpy(s.nu) for s in states])
     return tuple((s.step, m, n) for s, m, n in zip(states, mus, nus))
+
+
+# ----------------------------------------------------------------- DDPG
+_DDPG_NETS = ("actor", "critic", "target_actor", "target_critic")
+
+
+def ddpg_params_from_jax(tree: Dict[str, Any], device="cpu"
+                         ) -> ddpg.DDPGParams:
+    """A reference DDPG params pytree (numpy leaves) -> ``DDPGParams``."""
+    w0 = np.asarray(tree["actor"][0]["w"])
+    act_dim = np.asarray(tree["actor"][-1]["w"]).shape[1]
+    params = ddpg.init_ddpg(torch.Generator(), w0.shape[0], act_dim,
+                            hidden=w0.shape[1])
+    for name in _DDPG_NETS:
+        _copy_into(list(getattr(params, name).parameters()),
+                   _net(tree[name]))
+    return params.to(device)
+
+
+def ddpg_params_to_jax(params: ddpg.DDPGParams) -> Dict[str, Any]:
+    """``DDPGParams`` -> the reference's DDPG params pytree of numpy
+    arrays."""
+    return {name: _net_tree(_numpy(getattr(params, name).parameters()))
+            for name in _DDPG_NETS}
+
+
+def ddpg_adam_states_from_jax(states, device="cpu") -> Tuple[AdamState, ...]:
+    """The reference's ``(actor, critic)`` Adam states -> the port's."""
+    return tuple(_adam(s, _net, device) for s in states)
+
+
+def ddpg_adam_states_to_jax(states) -> Tuple[Tuple[int, Any, Any], ...]:
+    """The port's two DDPG Adam states -> ``(step, mu, nu)`` triples shaped
+    like the reference's actor and critic layer lists (numpy leaves)."""
+    return tuple((s.step, _net_tree(_numpy(s.mu)), _net_tree(_numpy(s.nu)))
+                 for s in states)

@@ -10,10 +10,11 @@ the other. The device is an argument of ``build``/``run``, not a spec field:
 it defaults to ``cuda`` and, with no CUDA device, raises rather than run on
 the CPU unasked.
 
-Ported so far: runtime ``sync``, backend ``inline``, algos ``ppo`` and
-``sac``, buffers ``fifo``, ``uniform`` and ``prioritized`` (with
-``buffer_kwargs``), envs ``pendulum``/``cheetah``, with ``num_samplers ×
-global_batch`` or ``env_batch`` collection. Anything else is rejected with a
+Ported so far: runtime ``sync``, backend ``inline``, algos ``ppo``,
+``trpo``, ``ddpg`` and ``sac``, buffers ``fifo``, ``uniform`` and
+``prioritized`` (with ``buffer_kwargs``), envs ``pendulum``, ``cartpole``
+and ``cheetah``, with ``num_samplers × global_batch`` or ``env_batch``
+collection. Anything else is rejected with a
 message naming ROADMAP.md, never ignored.
 
 The runner owns the plane state ``(buffer_state, generator)``. The

@@ -6,10 +6,14 @@ attribute counts the launches of its kernel, so a run can show that it went
 through the kernels.
 """
 from repro_torch.kernels.env_step.ops import (  # noqa: F401
+    cartpole_step_cuda,
     cheetah_step_cuda,
     pendulum_step_cuda,
 )
-from repro_torch.kernels.gae.ops import gae_cuda  # noqa: F401
+from repro_torch.kernels.gae.ops import (  # noqa: F401
+    discounted_returns_cuda,
+    gae_cuda,
+)
 from repro_torch.kernels.replay_ring.ops import (  # noqa: F401
     ring_gather_cuda,
     ring_insert_cuda,
@@ -26,8 +30,10 @@ from repro_torch.kernels.sum_tree.ops import (  # noqa: F401
 
 KERNELS = {
     "pendulum_step": pendulum_step_cuda,
+    "cartpole_step": cartpole_step_cuda,
     "cheetah_step": cheetah_step_cuda,
     "gae": gae_cuda,
+    "discounted_returns": discounted_returns_cuda,
     "ring_insert": ring_insert_cuda,
     "ring_gather": ring_gather_cuda,
     "sumtree_find": sumtree_find_cuda,

@@ -1,7 +1,7 @@
-// Fused batched env step + auto-reset for pendulum and cheetah.
+// Fused batched env step + auto-reset for pendulum, cart-pole and cheetah.
 //
-// Replaces the TPU kernels pendulum_step_pallas and cheetah_step_pallas
-// (src/repro/kernels/env_step/env_step_pallas.py). One thread per env
+// Replaces the TPU kernels pendulum_step_pallas, cartpole_step_pallas and
+// cheetah_step_pallas (src/repro/kernels/env_step/env_step_pallas.py). One thread per env
 // instance evaluates the physics, reward, termination and observation in the
 // expression order of the plain versions (repro_torch/kernels/env_step/ref.py),
 // then selects the reset candidates where the episode ended. The TPU kernels'
@@ -10,9 +10,10 @@
 //
 // Bound on an H100: HBM bytes. Each instance reads its state and actions
 // once and writes its next state, obs, reward and done once (cheetah: 84 B
-// read + 121 B written; pendulum: 16 B read + 29 B written); only an
-// instance whose episode ended also reads its reset candidates (cheetah
-// 116 B, pendulum 24 B). Against those bytes stand a few dozen float
+// read + 121 B written; cart-pole: 24 B read + 41 B written; pendulum:
+// 16 B read + 29 B written); only an instance whose episode ended also
+// reads its reset candidates (cheetah 116 B, cart-pole 36 B, pendulum
+// 24 B). Against those bytes stand a few dozen float
 // operations per instance, far below the card's operations-per-byte
 // balance. The design keeps everything per thread
 // in registers (cheetah's joint roll, 5-term thrust mean and 6-term control
@@ -20,7 +21,10 @@
 //
 // Built with -fmad=false: no FMA contraction, so results round like the
 // plain PyTorch version's separate elementwise ops. sinf/cosf are CUDA's
-// full-range versions (no fast math).
+// full-range versions (no fast math). Cart-pole's constants that the
+// reference folds in Python (total mass, pole mass x half-length, 4/3) and
+// its two fall limits arrive as floats rounded once from the host's double,
+// so every comparison and division is the float32 one of the plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -165,6 +169,65 @@ __global__ void cheetah_step_kernel(
   }
 }
 
+__global__ void cartpole_step_kernel(
+    int B, const float* __restrict__ x, const float* __restrict__ xdot,
+    const float* __restrict__ th, const float* __restrict__ thdot,
+    const int32_t* __restrict__ t, const float* __restrict__ act,
+    const float* __restrict__ rx, const float* __restrict__ rxd,
+    const float* __restrict__ rth, const float* __restrict__ rtd,
+    const int32_t* __restrict__ rt, const float* __restrict__ robs,
+    float* __restrict__ ox, float* __restrict__ oxd,
+    float* __restrict__ oth, float* __restrict__ otd,
+    int32_t* __restrict__ ot, float* __restrict__ oobs,
+    float* __restrict__ orew, uint8_t* __restrict__ odone,
+    int max_episode_steps, float force_max, float reward_scale,
+    float total_m, float pm_l, float four_thirds, float x_limit,
+    float th_limit) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  float a0 = act[i];
+  float x_i = x[i], xd = xdot[i], th_i = th[i], td = thdot[i];
+  float force = clip(a0, -1.0f, 1.0f) * force_max;
+  float costh = cosf(th_i);
+  float sinth = sinf(th_i);
+  float temp = (force + pm_l * (td * td) * sinth) / total_m;
+  float th_acc = (9.8f * sinth - costh * temp) /
+                 (0.5f * (four_thirds - 0.1f * (costh * costh) / total_m));
+  float x_acc = temp - pm_l * th_acc * costh / total_m;
+  float nx = x_i + 0.02f * xd;
+  float nxd = xd + 0.02f * x_acc;
+  float nth = th_i + 0.02f * td;
+  float ntd = td + 0.02f * th_acc;
+  int32_t nt = t[i] + 1;
+  bool fell = (fabsf(nx) > x_limit) | (fabsf(nth) > th_limit);
+  bool done = fell | (nt >= max_episode_steps);
+  // the control cost takes the unclipped action, as the reference's does
+  float rew = 1.0f - 0.01f * (a0 * a0) - (fell ? 1.0f : 0.0f);
+  if (reward_scale != 1.0f) rew = rew * reward_scale;
+  orew[i] = rew;
+  odone[i] = done ? 1 : 0;
+  float* obs = oobs + 4 * i;
+  if (done) {
+    ox[i] = rx[i];
+    oxd[i] = rxd[i];
+    oth[i] = rth[i];
+    otd[i] = rtd[i];
+    ot[i] = rt[i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) obs[k] = robs[4 * i + k];
+  } else {
+    ox[i] = nx;
+    oxd[i] = nxd;
+    oth[i] = nth;
+    otd[i] = ntd;
+    ot[i] = nt;
+    obs[0] = nx;
+    obs[1] = nxd;
+    obs[2] = nth;
+    obs[3] = ntd;
+  }
+}
+
 constexpr int kThreads = 256;
 
 }  // namespace
@@ -182,6 +245,26 @@ extern "C" int pendulum_step(
       (const int32_t*)rt, (const float*)robs, (float*)oth, (float*)otd,
       (int32_t*)ot, (float*)oobs, (float*)orew, (uint8_t*)odone,
       max_episode_steps, max_torque, reward_scale, grav_coef, torque_coef);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cartpole_step(
+    int B, const void* x, const void* xdot, const void* th,
+    const void* thdot, const void* t, const void* act, const void* rx,
+    const void* rxd, const void* rth, const void* rtd, const void* rt,
+    const void* robs, void* ox, void* oxd, void* oth, void* otd, void* ot,
+    void* oobs, void* orew, void* odone, int max_episode_steps,
+    float force_max, float reward_scale, float total_m, float pm_l,
+    float four_thirds, float x_limit, float th_limit, void* stream) {
+  int blocks = (B + kThreads - 1) / kThreads;
+  cartpole_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      B, (const float*)x, (const float*)xdot, (const float*)th,
+      (const float*)thdot, (const int32_t*)t, (const float*)act,
+      (const float*)rx, (const float*)rxd, (const float*)rth,
+      (const float*)rtd, (const int32_t*)rt, (const float*)robs, (float*)ox,
+      (float*)oxd, (float*)oth, (float*)otd, (int32_t*)ot, (float*)oobs,
+      (float*)orew, (uint8_t*)odone, max_episode_steps, force_max,
+      reward_scale, total_m, pm_l, four_thirds, x_limit, th_limit);
   return (int)cudaGetLastError();
 }
 

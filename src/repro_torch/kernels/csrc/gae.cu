@@ -1,7 +1,9 @@
-// Generalised advantage estimation: reverse-time scan over (T, B).
+// Generalised advantage estimation and discounted returns: reverse-time
+// scans over (T, B).
 //
-// Replaces the TPU kernel gae_pallas (src/repro/kernels/gae/gae_pallas.py).
-// One thread per column b walks t = T-1 ... 0 with the carry
+// gae replaces the TPU kernel gae_pallas, discounted_returns replaces
+// discounted_returns_pallas (src/repro/kernels/gae/gae_pallas.py).
+// In gae, one thread per column b walks t = T-1 ... 0 with the carry
 // (adv_{t+1}, v_{t+1}) in registers:
 //
 //   nt    = 1 - done[t]
@@ -15,10 +17,17 @@
 // no padding; the TPU kernel's time chunks and VMEM carry are not carried
 // over. dones are read as stored (bool, one byte).
 //
-// Bound on an H100: HBM bytes, 17 per (t, b) element (r, v: 4 + 4; done: 1;
-// adv, ret: 4 + 4) against 7 float operations, far below the card's
-// operations-per-byte balance. Built with -fmad=false, so with only + - *
-// the kernel equals the plain version bit for bit.
+// discounted_returns walks the same way with the one carry R_{t+1}, seeded
+// by last_value[b]:
+//
+//   nt  = 1 - done[t]
+//   R_t = r[t] + (gamma * nt) * R_{t+1}
+//
+// Bound on an H100: HBM bytes. gae moves 17 per (t, b) element (r, v:
+// 4 + 4; done: 1; adv, ret: 4 + 4) against 7 float operations;
+// discounted_returns 9 (r: 4, done: 1, R: 4) against 4. Both are far below
+// the card's operations-per-byte balance. Built with -fmad=false, so with
+// only + - * each kernel equals its plain version bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,6 +56,23 @@ __global__ void gae_kernel(int T, int B, const float* __restrict__ r,
   }
 }
 
+__global__ void discounted_returns_kernel(int T, int B,
+                                          const float* __restrict__ r,
+                                          const uint8_t* __restrict__ done,
+                                          const float* __restrict__ last_value,
+                                          float* __restrict__ ret,
+                                          float gamma) {
+  int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  float carry = last_value[b];
+  for (int t = T - 1; t >= 0; --t) {
+    size_t k = (size_t)t * B + b;
+    float nt = 1.0f - (done[k] ? 1.0f : 0.0f);
+    carry = r[k] + gamma * nt * carry;
+    ret[k] = carry;
+  }
+}
+
 constexpr int kThreads = 128;
 
 }  // namespace
@@ -58,5 +84,15 @@ extern "C" int gae(int T, int B, const void* r, const void* v,
   gae_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       T, B, (const float*)r, (const float*)v, (const uint8_t*)done,
       (const float*)last_value, (float*)adv, (float*)ret, gamma, gamma_lam);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int discounted_returns(int T, int B, const void* r,
+                                  const void* done, const void* last_value,
+                                  void* ret, float gamma, void* stream) {
+  int blocks = (B + kThreads - 1) / kThreads;
+  discounted_returns_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      T, B, (const float*)r, (const uint8_t*)done, (const float*)last_value,
+      (float*)ret, gamma);
   return (int)cudaGetLastError();
 }

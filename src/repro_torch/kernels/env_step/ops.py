@@ -8,11 +8,12 @@ rewards, dones)`` with ``dones`` bool. Selection (``kernels.select``): a CPU
 tensor takes the plain version (``ref.py``); a CUDA tensor launches the
 kernel of ``csrc/env_step.cu`` unless the mode is ``ref``.
 
-The kernels replace ``pendulum_step_pallas`` and ``cheetah_step_pallas``
-(``repro/kernels/env_step/env_step_pallas.py``). They are HBM-bound: each
-instance reads its state and action and writes its outputs once (cheetah
-205 B, pendulum 45 B per instance), and reads its reset candidates (cheetah
-116 B, pendulum 24 B) only where its episode ended, for a few dozen float
+The kernels replace ``pendulum_step_pallas``, ``cartpole_step_pallas``
+and ``cheetah_step_pallas`` (``repro/kernels/env_step/env_step_pallas.py``).
+They are HBM-bound: each instance reads its state and action and writes
+its outputs once (cheetah 205 B, cart-pole 65 B, pendulum 45 B per
+instance), and reads its reset candidates (cheetah 116 B, cart-pole 36 B,
+pendulum 24 B) only where its episode ended, for a few dozen float
 operations. Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
@@ -38,6 +39,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("env_step")
     lib.pendulum_step.argtypes = [_I] + [_P] * 14 + [_I, _F, _F, _F, _F, _P]
     lib.pendulum_step.restype = _I
+    lib.cartpole_step.argtypes = [_I] + [_P] * 20 + [_I] + [_F] * 7 + [_P]
+    lib.cartpole_step.restype = _I
     lib.cheetah_step.argtypes = [_I] + [_P] * 20 + [_I, _F, _F, _P]
     lib.cheetah_step.restype = _I
     return lib
@@ -98,6 +101,47 @@ def pendulum_step_cuda(state, actions, reset_state, reset_obs, *,
 pendulum_step_cuda.launches = 0
 
 
+def cartpole_step_cuda(state, actions, reset_state, reset_obs, *,
+                       max_episode_steps, reward_scale, force_max):
+    """Launch the cart-pole kernel; same contract as
+    ``ref.cartpole_step_batch_ref``."""
+    x, xdot, th, thdot, t = state
+    rx, rxd, rth, rtd, rt = reset_state
+    B, dev, f32 = x.shape[0], x.device, torch.float32
+    _check([("x", x, (B,), f32), ("xdot", xdot, (B,), f32),
+            ("th", th, (B,), f32), ("thdot", thdot, (B,), f32),
+            ("t", t, (B,), torch.int32), ("actions", actions, (B, 1), f32),
+            ("reset x", rx, (B,), f32), ("reset xdot", rxd, (B,), f32),
+            ("reset th", rth, (B,), f32), ("reset thdot", rtd, (B,), f32),
+            ("reset t", rt, (B,), torch.int32),
+            ("reset obs", reset_obs, (B, 4), f32)], dev)
+    out_state = tuple(torch.empty_like(v) for v in state)
+    obs = torch.empty_like(reset_obs)
+    rew = torch.empty_like(x)
+    done = torch.empty((B,), dtype=torch.bool, device=dev)
+    if B == 0:
+        return out_state, obs, rew, done
+    rc = _lib().cartpole_step(
+        B, *(v.data_ptr() for v in state), actions.data_ptr(),
+        *(v.data_ptr() for v in reset_state), reset_obs.data_ptr(),
+        *(v.data_ptr() for v in out_state), obs.data_ptr(), rew.data_ptr(),
+        done.data_ptr(), int(max_episode_steps), float(force_max),
+        float(reward_scale),
+        # folded in double on the host, as the reference's Python folds
+        # them, then rounded once to float, as JAX rounds them where they
+        # meet a float32 array
+        ref.CARTPOLE_M_CART + ref.CARTPOLE_M_POLE,
+        ref.CARTPOLE_M_POLE * ref.CARTPOLE_L_POLE, 4.0 / 3.0,
+        ref.CARTPOLE_X_LIMIT, ref.CARTPOLE_TH_LIMIT,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "cartpole_step")
+    cartpole_step_cuda.launches += 1
+    return out_state, obs, rew, done
+
+
+cartpole_step_cuda.launches = 0
+
+
 def cheetah_step_cuda(state, actions, reset_state, reset_obs, *,
                       max_episode_steps, reward_scale, ctrl_cost):
     """Launch the cheetah kernel; same contract as
@@ -138,6 +182,7 @@ cheetah_step_cuda.launches = 0
 
 STEP_BATCH_CUDA = {
     "pendulum": pendulum_step_cuda,
+    "cartpole": cartpole_step_cuda,
     "cheetah": cheetah_step_cuda,
 }
 

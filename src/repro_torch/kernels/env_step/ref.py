@@ -1,8 +1,8 @@
 """Plain PyTorch version of the env-step kernel family (port of
 ``repro/kernels/env_step/ref.py``).
 
-The batched physics of pendulum and cheetah fused with the auto-reset
-select, over ``(B,)``/``(B, 6)`` state leaves. The expressions and their
+The batched physics of pendulum, cart-pole and cheetah fused with the
+auto-reset select, over ``(B,)``/``(B, 6)`` state leaves. The expressions and their
 order are the reference's; Python constants fold in double before they meet
 a float32 tensor, exactly as in the reference (e.g. ``3 * G / (2 * L)`` is
 15.0 before it multiplies ``sin(th)``). Where the order matters and torch
@@ -14,8 +14,6 @@ CUDA kernel in ``csrc/env_step.cu`` evaluates the same expressions.
 Reset candidates are inputs: they are drawn by the env modules from a
 ``torch.Generator`` and selected where ``done`` is set; rewards stay the
 terminal transition's (the ``auto_reset`` contract).
-
-Cart-pole is not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,6 +28,15 @@ PENDULUM_DT = 0.05
 PENDULUM_G = 10.0
 PENDULUM_M = 1.0
 PENDULUM_L = 1.0
+
+CARTPOLE_GRAVITY = 9.8
+CARTPOLE_M_CART = 1.0
+CARTPOLE_M_POLE = 0.1
+CARTPOLE_L_POLE = 0.5          # half-length
+CARTPOLE_FORCE_MAX = 10.0
+CARTPOLE_DT = 0.02
+CARTPOLE_X_LIMIT = 2.4
+CARTPOLE_TH_LIMIT = 12 * math.pi / 180
 
 CHEETAH_N_JOINTS = 6
 CHEETAH_DT = 0.05
@@ -48,12 +55,18 @@ def _angle_norm(x: torch.Tensor) -> torch.Tensor:
     return r - math.pi
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a true division by the float32 constant (a division by
+    a Python scalar may become a multiply by its reciprocal on the card)."""
+    return x / torch.full_like(x, c)
+
+
 def _mean_seq(cols) -> torch.Tensor:
     """Mean of a sequence of equal-shaped tensors, summed left to right."""
     total = cols[0]
     for c in cols[1:]:
         total = total + c
-    return total / torch.full_like(total, float(len(cols)))
+    return _div(total, float(len(cols)))
 
 
 def select_reset_batch(done, reset_state, reset_obs, state, obs):
@@ -97,6 +110,46 @@ def pendulum_step_batch_ref(state, actions, reset_state, reset_obs, *,
     return state, obs, reward, done
 
 
+# ================================================================ cartpole
+def cartpole_obs(state) -> torch.Tensor:
+    x, xdot, th, thdot, _ = state
+    return torch.stack([x, xdot, th, thdot], dim=-1)
+
+
+def cartpole_step_batch_ref(state, actions, reset_state, reset_obs, *,
+                            max_episode_steps, reward_scale, force_max):
+    """Batched cart-pole step + auto-reset. state leaves (B,) x4, int32
+    (B,); actions (B, 1). The force uses the clipped action, the reward's
+    control cost the unclipped one, as in the reference."""
+    x, xdot, th, thdot, t = state
+    a0 = actions[:, 0]
+    force = torch.clamp(a0, -1.0, 1.0) * force_max
+    total_m = CARTPOLE_M_CART + CARTPOLE_M_POLE
+    pm_l = CARTPOLE_M_POLE * CARTPOLE_L_POLE
+    costh, sinth = torch.cos(th), torch.sin(th)
+    temp = _div(force + pm_l * (thdot * thdot) * sinth, total_m)
+    th_acc = ((CARTPOLE_GRAVITY * sinth - costh * temp)
+              / (CARTPOLE_L_POLE
+                 * (4.0 / 3.0
+                    - _div(CARTPOLE_M_POLE * (costh * costh), total_m))))
+    x_acc = temp - _div(pm_l * th_acc * costh, total_m)
+    x = x + CARTPOLE_DT * xdot
+    xdot = xdot + CARTPOLE_DT * x_acc
+    th = th + CARTPOLE_DT * thdot
+    thdot = thdot + CARTPOLE_DT * th_acc
+    t = t + 1
+    fell = ((torch.abs(x) > CARTPOLE_X_LIMIT)
+            | (torch.abs(th) > CARTPOLE_TH_LIMIT))
+    done = fell | (t >= max_episode_steps)
+    reward = 1.0 - 0.01 * (a0 * a0) - 1.0 * fell
+    if reward_scale != 1.0:
+        reward = reward * reward_scale
+    obs = cartpole_obs((x, xdot, th, thdot, t))
+    state, obs = select_reset_batch(done, reset_state, reset_obs,
+                                    (x, xdot, th, thdot, t), obs)
+    return state, obs, reward, done
+
+
 # ================================================================= cheetah
 def cheetah_obs(state) -> torch.Tensor:
     th, om, vx, pitch, _ = state
@@ -134,5 +187,6 @@ def cheetah_step_batch_ref(state, actions, reset_state, reset_obs, *,
 
 STEP_BATCH_REF = {
     "pendulum": pendulum_step_batch_ref,
+    "cartpole": cartpole_step_batch_ref,
     "cheetah": cheetah_step_batch_ref,
 }

@@ -1,1 +1,1 @@
-from repro_torch.kernels.gae.ops import gae  # noqa: F401
+from repro_torch.kernels.gae.ops import discounted_returns, gae  # noqa: F401

@@ -1,7 +1,8 @@
-"""Plain PyTorch version of GAE (port of ``gae_ref`` in
-``repro/kernels/gae/ref.py``): the reverse scan as a Python loop, with the
-reference's expressions in the reference's order. ``gamma * lam`` folds in
-double before it meets a tensor, as in the reference."""
+"""Plain PyTorch versions of the GAE family (port of
+``repro/kernels/gae/ref.py``): ``gae_ref`` and ``discounted_returns_ref``,
+each a reverse scan as a Python loop, with the reference's expressions in
+the reference's order. ``gamma * lam`` folds in double before it meets a
+tensor, as in the reference."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -29,3 +30,18 @@ def gae_ref(rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor,
         adv_next, v_next = adv, v
     advs = torch.stack(advs)
     return advs, advs + values
+
+
+def discounted_returns_ref(rewards: torch.Tensor, dones: torch.Tensor,
+                           last_value: torch.Tensor, gamma: float = 0.99
+                           ) -> torch.Tensor:
+    """Discounted returns-to-go: ``R_t = r_t + gamma * nt_t * R_{t+1}``,
+    bootstrapped from ``last_value``. Shapes as ``gae_ref``; ``T = 0``
+    gives an empty result."""
+    nonterm = 1.0 - dones.to(torch.float32)
+    carry = last_value
+    rets = [None] * rewards.shape[0]
+    for t in reversed(range(rewards.shape[0])):
+        carry = rewards[t] + gamma * nonterm[t] * carry
+        rets[t] = carry
+    return torch.stack(rets) if rets else torch.empty_like(rewards)

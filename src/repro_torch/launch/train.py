@@ -11,9 +11,13 @@ Usage:
       --iterations 3 [--env-batch 4096] [--kernels {ref,cuda,auto}] \
       [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
-      --algo sac --buffer prioritized --num-samplers 10 --global-batch 160 \
-      --horizon 125 --replay-capacity 1000000 --replay-batch 256 \
-      [--n-step 3] [--device cpu]
+      --algo {sac,ddpg} --buffer prioritized --num-samplers 10 \
+      --global-batch 160 --horizon 125 --replay-capacity 1000000 \
+      --replay-batch 256 [--n-step 3] [--device cpu]
+
+Algos: ``ppo`` and ``trpo`` (on-policy, the ``fifo`` buffer), ``sac`` and
+``ddpg`` (replay, ``uniform`` or ``prioritized``). Envs: ``pendulum``,
+``cartpole`` and ``cheetah``.
 """
 from __future__ import annotations
 
@@ -71,7 +75,7 @@ def main(argv=None) -> experiment.ExperimentResult:
     ap.add_argument("--backend", default="inline")
     ap.add_argument("--buffer", default=None,
                     help="experience buffer kind (default: the algo's own, "
-                         "fifo for ppo, uniform for sac)")
+                         "fifo for ppo and trpo, uniform for sac and ddpg)")
     ap.add_argument("--replay-capacity", type=int, default=None,
                     help="off-policy buffers: ring capacity")
     ap.add_argument("--replay-batch", type=int, default=None,

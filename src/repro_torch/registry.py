@@ -1,8 +1,9 @@
 """The registry: one ``register``/``make`` seam for pluggable components
 (port of ``repro/registry.py``).
 
-Only what is ported is registered: envs ``pendulum``/``cheetah``, algo
-``ppo``, backend ``inline``, buffer ``fifo``. The built-in entries of each
+Only what is ported is registered: envs ``pendulum``, ``cartpole`` and
+``cheetah``; algos ``ppo``, ``trpo``, ``ddpg`` and ``sac``; backend
+``inline``; buffers ``fifo``, ``uniform`` and ``prioritized``. The built-in entries of each
 kind live with their implementations and are imported on first lookup.
 Registering a duplicate name raises ``ValueError``; an unknown name raises
 ``KeyError`` listing the registered choices.

@@ -10,7 +10,8 @@ Tolerances:
   largest magnitude of the step's output. XLA's and ATen's ``sin``/``cos``
   differ by an ulp and XLA contracts some ``a*b + c`` into FMAs, and the
   difference propagates through cancellation (e.g. ``th`` near 30 feeds
-  ``cos(th)``), so a per-element ulp count near zero is no bound.
+  ``cos(th)``), so a per-element ulp count near zero is no bound. For
+  cart-pole this is the JAX suite's own ``PARITY_ULPS["cartpole"] = 4``.
 """
 import jax
 import jax.numpy as jnp
@@ -18,13 +19,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro import envs as jax_envs
 from repro.kernels.env_step import ops as jax_env_ops
+from repro_torch import envs
 from repro_torch.kernels import select
 from repro_torch.kernels.env_step import ops as env_ops
 from repro_torch.kernels.env_step import ref as env_ref
 
 HORIZON = 5
-PARAMS = {"pendulum": dict(max_torque=2.0), "cheetah": dict(ctrl_cost=0.1)}
+PARAMS = {"pendulum": dict(max_torque=2.0), "cartpole": dict(force_max=10.0),
+          "cheetah": dict(ctrl_cost=0.1)}
 
 
 def make_inputs(name, B, seed):
@@ -42,6 +46,13 @@ def make_inputs(name, B, seed):
         state = (f(B, lo=-3 * np.pi, hi=3 * np.pi), f(B, lo=-8, hi=8), t)
         reset = (f(B, lo=-np.pi, hi=np.pi), f(B), rt)
         return state, f(B, 1, lo=-3, hi=3), reset, f(B, 3)
+    if name == "cartpole":
+        # x and th around their limits (2.4, 12 degrees), so some poles
+        # fall and some carts leave the track; actions beyond the clip
+        state = (f(B, lo=-2.5, hi=2.5), f(B, lo=-2, hi=2),
+                 f(B, lo=-0.25, hi=0.25), f(B, lo=-2, hi=2), t)
+        reset = tuple(f(B, lo=-0.05, hi=0.05) for _ in range(4)) + (rt,)
+        return state, f(B, 1, lo=-2, hi=2), reset, f(B, 4)
     state = (f(B, 6), f(B, 6), f(B, lo=-2, hi=2), f(B), t)
     reset = (f(B, 6, lo=-0.1, hi=0.1), f(B, 6, lo=-0.1, hi=0.1),
              np.zeros(B, np.float32), np.zeros(B, np.float32), rt)
@@ -75,7 +86,7 @@ def assert_step_close(got, want, *, ulps=4):
             np.testing.assert_allclose(g, w, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("name", ["pendulum", "cheetah"])
+@pytest.mark.parametrize("name", ["pendulum", "cheetah", "cartpole"])
 @pytest.mark.parametrize("B", [1, 7, 700])
 @pytest.mark.parametrize("reward_scale", [1.0, 0.5])
 def test_plain_env_step_matches_jax_ref(name, B, reward_scale):
@@ -141,7 +152,54 @@ def test_kernel_wrapper_rejects_bad_layout():
         env_ops.cheetah_step_cuda(bad, to_torch(a), to_torch(rs),
                                   to_torch(ro), max_episode_steps=HORIZON,
                                   reward_scale=1.0, ctrl_cost=0.1)
-    with pytest.raises(KeyError, match="cartpole"):
-        env_ops.env_step("cartpole", st, to_torch(a), to_torch(rs),
+    with pytest.raises(KeyError, match="hopper"):
+        env_ops.env_step("hopper", st, to_torch(a), to_torch(rs),
                          to_torch(ro))
+    cst, ca, crs, cro = make_inputs("cartpole", 4, seed=2)
+    cst = to_torch(cst)
+    with pytest.raises(ValueError, match="actions must be"):
+        env_ops.cartpole_step_cuda(cst, to_torch(ca).reshape(1, 4),
+                                   to_torch(crs), to_torch(cro),
+                                   max_episode_steps=HORIZON,
+                                   reward_scale=1.0, force_max=10.0)
+    with pytest.raises(ValueError, match="reset obs must be"):
+        env_ops.cartpole_step_cuda(cst, to_torch(ca), to_torch(crs),
+                                   to_torch(cro)[:, :3].contiguous(),
+                                   max_episode_steps=HORIZON,
+                                   reward_scale=1.0, force_max=10.0)
+
+
+def test_cartpole_falls_and_rewards_like_the_reference():
+    """Hand-built rows: upright, tilted past 12 degrees, off the track, and
+    an action beyond the clip (the force is clipped, the control cost
+    takes the raw action); ``t`` restarts with the reset."""
+    zeros = torch.zeros(4)
+    state = (torch.tensor([0.0, 0.0, 2.45, 0.0]), zeros.clone(),
+             torch.tensor([0.0, 0.3, 0.0, 0.0]), zeros.clone(),
+             torch.tensor([3, 3, 3, 3], dtype=torch.int32))
+    actions = torch.tensor([[0.0], [0.0], [0.0], [3.0]])
+    reset = tuple(torch.full((4,), 0.01) for _ in range(4)) + (
+        torch.zeros(4, dtype=torch.int32),)
+    (x, _, _, _, t), obs, rew, done = env_ref.cartpole_step_batch_ref(
+        state, actions, reset, torch.full((4, 4), 0.01),
+        max_episode_steps=HORIZON, reward_scale=1.0, force_max=10.0)
+    assert done.tolist() == [False, True, True, False]
+    np.testing.assert_allclose(rew.numpy(), [1.0, 0.0, 0.0, 1.0 - 0.09],
+                               rtol=1e-6)
+    assert t.tolist() == [4, 0, 0, 4]
+    assert float(x[3]) == 0.0 and float(obs[1, 0]) == np.float32(0.01)
+
+
+def test_cartpole_env_matches_the_reference_env():
+    """The env's contract: obs (B, 4), one action, horizon 500, resets
+    uniform in [-0.05, 0.05] with ``t`` 0."""
+    env = envs.make("cartpole")
+    jenv = jax_envs.make("cartpole")
+    assert (env.obs_dim, env.act_dim, env.max_episode_steps) == (
+        jenv.obs_dim, jenv.act_dim, jenv.max_episode_steps) == (4, 1, 500)
+    state, obs = env.reset(torch.Generator().manual_seed(0), 256, "cpu")
+    assert obs.shape == (256, 4) and obs.dtype == torch.float32
+    assert float(obs.abs().max()) <= 0.05 and float(obs.abs().max()) > 0.04
+    assert torch.equal(obs, torch.stack(state[:4], dim=-1))
+    assert state[4].dtype == torch.int32 and not state[4].any()
 

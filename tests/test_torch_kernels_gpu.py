@@ -7,8 +7,9 @@ installed:
     PYTHONPATH=src python -m pytest --noconftest -m gpu \
         tests/test_torch_kernels_gpu.py
 
-Bounds: ``t``, ``done`` and GAE exact (``-fmad=false`` and only ``+ - *``:
-the kernel rounds the plain version's expressions the same way); env float
+Bounds: ``t``, ``done``, GAE and the discounted returns exact
+(``-fmad=false`` and only ``+ - *``: the kernel rounds the plain version's
+expressions the same way); env float
 leaves within 4 ulp per element, or 4 ulp of the leaf's magnitude where
 cancellation leaves a value near zero (``sinf``/``cosf`` may differ from
 ATen's by an ulp). The replay-ring and sum-tree kernels exactly: they move
@@ -26,7 +27,8 @@ from repro_torch.kernels.sum_tree import ops as tree_ops
 from repro_torch.kernels.sum_tree import ref as tree_ref
 
 HORIZON = 5
-PARAMS = {"pendulum": dict(max_torque=2.0), "cheetah": dict(ctrl_cost=0.1)}
+PARAMS = {"pendulum": dict(max_torque=2.0), "cartpole": dict(force_max=10.0),
+          "cheetah": dict(ctrl_cost=0.1)}
 
 
 @pytest.fixture
@@ -50,6 +52,12 @@ def env_inputs(name, B, device):
     if name == "pendulum":
         return ((f(B, lo=-10, hi=10), f(B, lo=-8, hi=8), t),
                 f(B, 1, lo=-3, hi=3), (f(B), f(B), rt), f(B, 3))
+    if name == "cartpole":          # around the fall limits
+        return ((f(B, lo=-2.5, hi=2.5), f(B, lo=-2, hi=2),
+                 f(B, lo=-0.25, hi=0.25), f(B, lo=-2, hi=2), t),
+                f(B, 1, lo=-2, hi=2),
+                tuple(f(B, lo=-0.05, hi=0.05) for _ in range(4)) + (rt,),
+                f(B, 4))
     zeros = torch.zeros(B, device=device)
     return ((f(B, 6), f(B, 6), f(B, lo=-2, hi=2), f(B), t),
             f(B, 6, lo=-2, hi=2),
@@ -62,7 +70,7 @@ def leaves(out):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["pendulum", "cheetah"])
+@pytest.mark.parametrize("name", ["pendulum", "cheetah", "cartpole"])
 @pytest.mark.parametrize("B", [1, 700, 16384])
 def test_env_step_kernel_matches_plain(cuda, name, B):
     state, a, rs, ro = env_inputs(name, B, cuda)
@@ -110,6 +118,40 @@ def test_gae_kernel_matches_plain(cuda, shape):
     assert gae_ops.gae_cuda.launches == before + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1), (125, 160), (128, 4096),
+                                   (125, 163), (16, 3, 5), (0, 4), (5, 0)])
+def test_discounted_returns_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(11)
+    r = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                         ).to(cuda)
+    d = torch.from_numpy(rng.random(shape) < 0.1).to(cuda)
+    lv = torch.from_numpy(
+        rng.standard_normal(shape[1:]).astype(np.float32)).to(cuda)
+    before = gae_ops.discounted_returns_cuda.launches
+    got = gae_ops.discounted_returns(r, d, lv, 0.97, impl="cuda")
+    want = gae_ops.discounted_returns_ref(r, d, lv, 0.97)
+    torch.cuda.synchronize()
+    launched = int(r.numel() > 0)
+    assert gae_ops.discounted_returns_cuda.launches == before + launched
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_cannot_take(cuda):
+    r = torch.zeros(4, 3, device=cuda)
+    with pytest.raises(ValueError, match="dones"):
+        gae_ops.discounted_returns_cuda(r, torch.zeros(4, 3, device=cuda),
+                                        torch.zeros(3, device=cuda),
+                                        gamma=0.9)
+    state, a, rs, ro = env_inputs("cartpole", 8, cuda)
+    with pytest.raises(ValueError, match="th must be"):
+        env_ops.cartpole_step_cuda(
+            (state[0], state[1], state[2].double(), state[3], state[4]), a,
+            rs, ro, max_episode_steps=HORIZON, reward_scale=1.0,
+            force_max=10.0)
 
 
 def _leaf(rng, shape, dtype, device):

@@ -9,6 +9,11 @@ then 4 sample -> learn -> priority updates) on a trajectory the JAX package
 collected, against the JAX step, with the JAX draws injected; CPU runs of
 SAC with both replay buffers through the CLI; ``next_obs`` in the rollout;
 the buffer checks; a SAC spec's JSON shared with the JAX package.
+
+Slice 3: cart-pole in the rollout-step parity and the CPU runs; one
+composed DDPG × prioritized train step against the JAX step; CPU runs of
+TRPO, DDPG and cart-pole through the CLI, each of which raises without
+``--device cpu`` when there is no CUDA device.
 """
 import ast
 import dataclasses
@@ -31,7 +36,7 @@ from repro.kernels.env_step import ops as jax_env_ops
 from repro.models import mlp_policy as jax_policy
 from repro_torch import convert, envs, kernels, registry
 from repro_torch.algos import sac
-from repro_torch.algos.api import PPOAlgorithm, make_train_step
+from repro_torch.algos.api import DDPGAlgorithm, PPOAlgorithm, make_train_step
 from repro_torch.core import sampler
 from repro_torch.data import buffers
 from repro_torch.experiment import ExperimentSpec, Schedule, build, run
@@ -40,7 +45,7 @@ from repro_torch.launch import train
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("name", ["pendulum", "cheetah"])
+@pytest.mark.parametrize("name", ["pendulum", "cheetah", "cartpole"])
 def test_rollout_step_matches_jax(name):
     """One step of the sampler body from identical weights, state, noise
     and reset candidates: the JAX side composes the reference's policy and
@@ -66,6 +71,7 @@ def test_rollout_step_matches_jax(name):
                 "logp": jax_policy.gaussian_logp(mean, std, act),
                 "values": jax_policy.value_apply(jp, obs)}
     env_params = {"pendulum": dict(max_torque=2.0),
+                  "cartpole": dict(force_max=10.0),
                   "cheetah": dict(ctrl_cost=0.1)}[name]
     want_state, want_obs, rew, done = jax_env_ops.env_step(
         name, state, act, rstate, robs, impl="ref",
@@ -109,6 +115,9 @@ def test_batched_step_draws_reset_candidates_from_the_generator():
     ("cheetah", Schedule(num_samplers=2, global_batch=8, horizon=30,
                          iterations=2)),
     ("cheetah", Schedule(env_batch=8, horizon=30, iterations=2)),
+    ("cartpole", Schedule(num_samplers=2, global_batch=8, horizon=30,
+                          iterations=2)),
+    ("cartpole", Schedule(env_batch=8, horizon=30, iterations=2)),
 ])
 def test_cpu_run(name, schedule):
     kernels.reset_launch_counts()
@@ -154,7 +163,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     dict(runtime="fused"), dict(runtime="async"), dict(backend="process"),
-    dict(algo="ddpg"), dict(env="cartpole"), dict(algo="trpo"),
+    dict(backend="threaded"), dict(backend="sharded"),
+    dict(schedule=Schedule(fsdp=True)),
     dict(staleness="decay"), dict(algo_kwargs={"aux_coef": 0.1}),
     dict(schedule=Schedule(learner_devices=2)),
     dict(schedule=Schedule(overlap=True)),
@@ -364,3 +374,126 @@ def test_sac_spec_json_is_shared_with_jax():
     assert ring.size == 4 * 4 and ring.storage["obs"].shape == (64, 14)
     assert result.params.actor[0].out_features == 16
     assert "sac" in registry.choices("algo")
+
+
+# -------------------------------------------------------------- slice 3
+class _InjectedDDPG(DDPGAlgorithm):
+    """DDPG whose ``sample`` takes the next injected stratified uniforms
+    instead of the generator's."""
+
+    def __init__(self, draws, **kwargs):
+        super().__init__(**kwargs)
+        self.draws = iter(draws)
+
+    def sample(self, buffer, state, generator):
+        return buffer.sample_with(state, next(self.draws))
+
+
+def test_ddpg_prioritized_train_step_matches_jax():
+    """One composed step on a JAX-collected cheetah trajectory: observe,
+    then 4 sample -> learn -> priority updates. Bounds as in the SAC case
+    above: the ring exactly, params within 2e-5, the metrics within
+    ``rtol=1e-4``; the tree within ``rtol=1e-5`` plus 1e-5 of its largest
+    mass: DDPG's priority ``|q - target|`` is one difference (SAC's the
+    mean of two), so where q nears the target the weights' last-bit
+    differences (lr 1e-3, three times SAC's) become large relative ones
+    in the smallest leaves."""
+    T, N, CAP, BATCH, HIDDEN = 16, 4, 256, 32, 32
+    jenv = jax_envs.make("cheetah", max_episode_steps=10)
+    jalgo = jax_api.registry.make("algo", "ddpg", hidden=HIDDEN)
+    jbuf = jax_buffers.PrioritizedBuffer(capacity=CAP, batch_size=BATCH)
+    params, opt_state = jalgo.init(jax.random.PRNGKey(0), jenv)
+    carry = jax_sampler.init_env_carry(jenv, jax.random.PRNGKey(1), N)
+    _, traj = jax.jit(jax_sampler.make_algo_rollout(jalgo, jenv, T))(
+        params, carry)
+    assert np.asarray(traj["dones"]).any()
+    key = jax.random.PRNGKey(2)
+    plane = (jbuf.init(jalgo.transition_example(jenv)), key)
+    p_j, s_j, (b_j, _), m_j = jax.jit(jax_api.make_train_step(jalgo, jbuf))(
+        params, opt_state, plane, traj)
+
+    # the buffer's draw of each update: its key split into the buffer's
+    # and the (unused) learner's
+    draws = [torch.from_numpy(np.array(jax.random.uniform(
+        jax.random.split(k)[0], (BATCH,))))
+        for k in jax.random.split(key, 5)[1:]]
+    env = envs.make("cheetah", max_episode_steps=10)
+    algo = _InjectedDDPG(draws, hidden=HIDDEN)
+    tbuf = buffers.PrioritizedBuffer(capacity=CAP, batch_size=BATCH)
+    plane_t = (tbuf.init(algo.transition_example(env, "cpu")), None)
+    p_t, s_t, (b_t, _), m_t = make_train_step(algo, tbuf)(
+        convert.ddpg_params_from_jax(jax.tree.map(np.asarray, params)),
+        convert.ddpg_adam_states_from_jax(jax.tree.map(np.asarray,
+                                                       opt_state)),
+        plane_t, {k: torch.from_numpy(np.array(v)) for k, v in traj.items()})
+
+    assert s_t[0].step == s_t[1].step == 4
+    for k, v in b_t.ring.storage.items():
+        np.testing.assert_array_equal(v.numpy(),
+                                      np.asarray(b_j.ring.storage[k]))
+    for g, w in zip(b_t.tree.levels, b_j.tree.levels):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * float(w.max()))
+    for g, w in zip(jax.tree.leaves(convert.ddpg_params_to_jax(p_t)),
+                    jax.tree.leaves(jax.tree.map(np.asarray, p_j))):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-5)
+    assert set(m_t) == set(m_j)
+    for k in m_j:
+        np.testing.assert_allclose(float(m_t[k]), float(m_j[k]), rtol=1e-4,
+                                   atol=1e-6, err_msg=k)
+
+
+SLICE3_CLI = {
+    "trpo cheetah": ["--algo", "trpo", "--env", "cheetah"],
+    "ddpg cheetah prioritized": [
+        "--algo", "ddpg", "--env", "cheetah", "--buffer", "prioritized",
+        "--replay-capacity", "1024", "--replay-batch", "32"],
+    "ppo cartpole": ["--algo", "ppo", "--env", "cartpole"],
+    "ppo cartpole env-batch": ["--algo", "ppo", "--env", "cartpole",
+                               "--env-batch", "8"],
+}
+
+
+@pytest.mark.parametrize("run_name", list(SLICE3_CLI))
+def test_slice3_train_cli_cpu(capsys, run_name):
+    kernels.reset_launch_counts()
+    train.main(SLICE3_CLI[run_name] + [
+        "--device", "cpu", "--num-samplers", "2", "--global-batch", "8",
+        "--horizon", "16", "--iterations", "2"])
+    logs = [json.loads(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [lg["iteration"] for lg in logs] == [0, 1]
+    for lg in logs:
+        assert lg["samples"] == 8 * 16
+        assert all(math.isfinite(lg[k]) for k in
+                   ("mean_return", "collect_time", "learn_time"))
+    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+
+
+@pytest.mark.parametrize("run_name", list(SLICE3_CLI))
+def test_slice3_train_cli_without_cuda_raises(monkeypatch, run_name):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(SLICE3_CLI[run_name] + [
+            "--num-samplers", "2", "--global-batch", "8", "--horizon", "16",
+            "--iterations", "1"])
+
+
+def test_trpo_and_ddpg_cpu_runs_are_seeded():
+    for spec in (
+            ExperimentSpec(env="cartpole", algo="trpo", model={"hidden": 16},
+                           schedule=Schedule(num_samplers=2, global_batch=4,
+                                             horizon=50, iterations=2)),
+            ExperimentSpec(env="pendulum", algo="ddpg", buffer="prioritized",
+                           buffer_kwargs={"capacity": 100, "batch_size": 16},
+                           model={"hidden": 16},
+                           env_kwargs={"max_episode_steps": 10},
+                           schedule=Schedule(num_samplers=2, global_batch=4,
+                                             horizon=12, iterations=2))):
+        first, again = run(spec, device="cpu"), run(spec, device="cpu")
+        assert all(lg.mean_return != 0.0 for lg in first.logs), spec.algo
+        for a, b in zip(first.params.parameters(), again.params.parameters()):
+            assert torch.isfinite(a).all() and torch.equal(a, b)
+    assert {"trpo", "ddpg"} <= set(registry.choices("algo"))
+    assert "cartpole" in registry.choices("env")

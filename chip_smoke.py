@@ -17,7 +17,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    near zero; cart-pole at B = 1, 16, 700 and 4096 with poles falling and a
    reward scale of 0.5); the replay ring (N > cap, wraparound, cap 1,
    float, bool and int rows) and the sum tree (capacities 1, 2, 1024 and
-   2^20, zero-mass leaves, updates with duplicate indices) exactly;
+   2^20, zero-mass leaves, updates with duplicate indices) exactly; the LM
+   kernels at the serve runs' shapes and ragged ones: the selective scan
+   (hymba's prefill B 4 × S 144 × Di 3,200 × N 16, the long request's
+   S 4,224, B 3 × S 37 × Di 100 × N 5, a nonzero h0) within 2e-4 relative
+   to max(1, |value|), flash attention (hymba at S 144 and 4,224 with the
+   window 2,048, hd 128 causal, hd 32 non-causal, a ragged window) and
+   decode attention (176 slots with a random validity mask, a full ring of
+   2,048, hd 32 and 128) within 2e-5 in float32 and 3e-2 in bfloat16;
 4. main path, each run with the launch counts set to 0 just before it and
    read just after: PPO on cheetah through the train CLI with the paper's
    budget (10 samplers × 16 envs × 125 steps = 20,000 samples per
@@ -32,11 +39,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
    iterations) and DDPG on cheetah with prioritized replay (the SAC run's
    budget and replay, 3 iterations). Every log must be finite with the
    expected sample count, and each kernel's count must equal the steps,
-   learns, inserts, draws and priority updates the run made;
+   learns, inserts, draws and priority updates the run made. Then LM
+   serving at full width and depth with random weights: (a) the serve CLI
+   with its defaults on hymba-1.5b (batch 4, prompt 16 + 128 meta tokens,
+   32 tokens, 3 requests), (b) one prompt of 4,096 (P = 4,224, past the
+   window of 2,048: the ring wraps), (c) the wave server (4 slots, 10
+   requests in 3 waves, budgets 32 and 12, an EOS id), and falcon-mamba-7b
+   cut to 8 of 64 layers (batch 4, prompt 16, 16 tokens, 2 requests);
+   tokens in [0, vocab), logits finite, and per prefill one scan and one
+   flash launch per layer, per decode step one decode launch per layer;
 5. reference: small PPO, SAC prioritized, TRPO cart-pole and DDPG
    prioritized pendulum runs with the kernels, and the same runs with the
    plain versions (``kernels="ref"``), must end with the same weights bit
-   for bit (with the SAC and DDPG replay rings and trees too);
+   for bit (with the SAC and DDPG replay rings and trees too); hymba-1.5b
+   in float32 cut to 4 layers (TF32 off), batch 2, prompts of 16 and of
+   2,100 (past the window), 8 decode steps, the plain paths teacher-forced
+   with the kernels' tokens: prefill and every step's logits and the final
+   k, v, conv and ssm state within ``LM_F32_TOL``; and in bfloat16 run
+   (a)'s first request, whose max logit difference and top-1 agreement
+   over the prefill and 8 steps are reported, not bounded;
 6. timings: each kernel's median time per call (CUDA events around
    back-to-back calls, host launch included) and its device time alone
    (calls captured in a CUDA graph and replayed), the same two for its
@@ -50,7 +71,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    line ``{"kernels": [...]}``. A replay-ring time covers one call of the
    op over the 5 stored leaves (5 launches). The discounted returns lie on
    no path (neither package calls them outside tests and benchmarks); they
-   are timed at the GAE shapes.
+   are timed at the GAE shapes. The LM kernels are timed in bfloat16 at run
+   (a)'s shapes and at the long request's; their operations count the
+   products of the (row, key) pairs the masks let through at the bf16
+   tensor-core rate (989 TFLOP/s), the scan's at the float32 rate, and
+   their library yardstick is one ``scaled_dot_product_attention`` call
+   (``enable_gqa``, the band or validity mask) on the same values in its
+   own layout; the scan has none.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero at once.
@@ -76,7 +103,19 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 ENV_ULPS = 4
+# the LM kernels against their plain versions (tests/test_kernels.py's
+# bounds for the Pallas kernels): attention in float32 / bfloat16, and the
+# scan, relative where the state grows over a long sequence
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SCAN_TOL = 2e-4
+# cuda vs ref, float32 hymba-1.5b at 4 layers, on logits of magnitude ~5
+# and on the final state: the kernels sum in another order than the plain
+# paths (the flash kernel rescales per key, the decode kernel reduces over
+# slots in a tree, the scan sums y over the state in another order),
+# through 4 layers, the fused norms and a 32,001-wide head
+LM_F32_TOL = 1e-4
 
 # float operations per instance / element, counted from the kernel bodies
 # (adds, multiplies, divides, transcendentals and clamps, one each)
@@ -95,6 +134,11 @@ REPLACES = {
     "ring_gather": "src/repro/kernels/replay_ring/replay_ring_pallas.py:77",
     "sumtree_find": "src/repro/kernels/sum_tree/sum_tree_pallas.py:103",
     "sumtree_update": "src/repro/kernels/sum_tree/sum_tree_pallas.py:126",
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:112",
+    "decode_attention":
+        "src/repro/kernels/decode_attention/decode_attention.py:77",
+    "selective_scan": "src/repro/kernels/selective_scan/selective_scan.py:73",
 }
 SOURCES = {
     "pendulum_step": "src/repro_torch/kernels/csrc/env_step.cu",
@@ -106,6 +150,9 @@ SOURCES = {
     "ring_gather": "src/repro_torch/kernels/csrc/replay_ring.cu",
     "sumtree_find": "src/repro_torch/kernels/csrc/sum_tree.cu",
     "sumtree_update": "src/repro_torch/kernels/csrc/sum_tree.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "selective_scan": "src/repro_torch/kernels/csrc/selective_scan.cu",
 }
 CHEETAH_LEAVES = {"obs": (14,), "actions": (6,), "rewards": (),
                   "next_obs": (14,), "discounts": ()}
@@ -294,14 +341,15 @@ def graph_ms(fn, reps):
 
 
 def measure(kernel, shape, n, moved, fn, plain, reps, plain_reps,
-            library=None, plain_graph=True):
+            library=None, plain_graph=True, ops=None, rate=F32_OPS_PER_S):
     """Timings of one kernel and its plain version on the same inputs:
     ``ms``/``plain_ms`` per call as the main path makes it (host launch
     included), ``device_ms``/``plain_device_ms`` from graph replay (None
     where the plain version syncs with the host and so cannot be
     captured), and ``library_ms`` for one PyTorch call of the same
-    function, where there is one."""
-    b_ms, b_by = bound(kernel, n, moved)
+    function, where there is one. ``ops`` at ``rate`` replaces the
+    per-instance count ``OPS[kernel] * n``."""
+    b_ms, b_by = bound(kernel, n, moved, ops, rate)
     return {"ms": time_ms(fn, reps), "plain_ms": time_ms(plain, plain_reps),
             "device_ms": graph_ms(fn, reps),
             "plain_device_ms": (graph_ms(plain, plain_reps) if plain_graph
@@ -315,12 +363,367 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(kernel, n, moved):
+def bound(kernel, n, moved, ops=None, rate=F32_OPS_PER_S):
     """(bound_ms, bound_by) for ``n`` instances/elements moving ``moved``
-    bytes."""
+    bytes (or ``ops`` operations at ``rate``)."""
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS[kernel] * n / F32_OPS_PER_S * 1e3
+    t_ops = (OPS[kernel] * n if ops is None else ops) / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# -------------------------------------------------------------- LM slice
+HYMBA = dict(B=4, P=16 + 128, gen=32)       # run (a): prompt 16 + 128 meta
+LONG = dict(B=1, P=4096 + 128, gen=16)      # run (b): past the window 2048
+
+
+def scan_inputs(B, S, Di, N, gen, h0_scale=0.0):
+    """Random scan inputs on the card: dt = softplus(normal) / 10 and
+    A = -exp(normal / 5), as tests/test_kernels.py draws them."""
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(rnd(B, S, Di)) * 0.1
+    A = -torch.exp(rnd(Di, N) * 0.2)
+    return dt, A, rnd(B, S, N), rnd(B, S, N), rnd(B, S, Di), rnd(
+        B, Di, N) * h0_scale
+
+
+def attn_inputs(B, S, K, G, hd, dtype, gen):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return rnd(B, S, K, G, hd), rnd(B, S, K, hd), rnd(B, S, K, hd)
+
+
+def decode_inputs(B, K, G, Sc, hd, dtype, p_valid, gen):
+    q = torch.randn((B, K, G, hd), generator=gen, device="cuda").to(dtype)
+    kc, vc = (torch.randn((B, Sc, K, hd), generator=gen, device="cuda"
+                          ).to(dtype) for _ in range(2))
+    valid = torch.rand(Sc, generator=gen, device="cuda") < p_valid
+    valid[0] = True
+    return q, kc, vc, valid
+
+
+def max_err(got, want, rel=False):
+    """max |got - want|; with ``rel``, over max(1, |want|)."""
+    err = (got.double() - want.double()).abs()
+    if rel:
+        err = err / want.double().abs().clamp_min(1.0)
+    return float(err.max())
+
+
+def check_lm_kernels(errs, gen):
+    """Phase 3 for the LM kernels: each wrapper against its plain version
+    at the serve runs' shapes and at ragged ones."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+
+    def note(name, err):
+        errs[name] = (None, max(errs[name][1], err))
+
+    for B, S, Di, N, h0 in ((HYMBA["B"], HYMBA["P"], 3200, 16, 0.0),
+                            (LONG["B"], LONG["P"], 3200, 16, 0.0),
+                            (3, 37, 100, 5, 0.0), (2, 300, 256, 16, 1.0)):
+        args = scan_inputs(B, S, Di, N, gen, h0)
+        got = scan_ops.selective_scan_cuda(*args)
+        want = scan_ops.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = max(max_err(g, w, rel=True) for g, w in zip(got, want))
+        assert err <= SCAN_TOL, f"selective_scan B={B} S={S}: {err}"
+        note("selective_scan", max(max_err(g, w) for g, w in zip(got, want)))
+        log(f"check selective_scan B={B} S={S} Di={Di} N={N} h0*{h0}: "
+            f"max rel err {err:.3g}")
+    for B, S, K, G, hd, causal, window, dtypes in (
+            (HYMBA["B"], HYMBA["P"], 5, 5, 64, True, 2048,
+             (torch.bfloat16, torch.float32)),
+            (LONG["B"], LONG["P"], 5, 5, 64, True, 2048,
+             (torch.bfloat16, torch.float32)),
+            (2, 300, 2, 4, 128, True, 0, (torch.bfloat16, torch.float32)),
+            (2, 129, 2, 2, 32, False, 0, (torch.bfloat16, torch.float32)),
+            (1, 77, 4, 1, 32, True, 20, (torch.float32,))):
+        for dtype in dtypes:
+            q, k, v = attn_inputs(B, S, K, G, hd, dtype, gen)
+            got = fa_ops.flash_attention_cuda(q, k, v, causal=causal,
+                                              window=window)
+            want = fa_ops.flash_attention(q, k, v, causal=causal,
+                                          window=window, impl="ref")
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            assert err <= ATTN_TOL[dtype], (
+                f"flash_attention S={S} hd={hd} {dtype}: {err}")
+            note("flash_attention", err)
+            log(f"check flash_attention B={B} S={S} K={K} G={G} hd={hd} "
+                f"causal={causal} window={window} {dtype}: max abs err "
+                f"{err:.3g}")
+    for B, K, G, Sc, hd, p_valid in ((HYMBA["B"], 5, 5, 176, 64, 0.6),
+                                     (LONG["B"], 5, 5, 2048, 64, 1.0),
+                                     (3, 2, 3, 300, 32, 0.5),
+                                     (2, 2, 4, 500, 128, 0.8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc, valid = decode_inputs(B, K, G, Sc, hd, dtype, p_valid,
+                                             gen)
+            got = dec_ops.decode_attention_cuda(q, kc, vc, valid)
+            want = dec_ops.decode_attention(q, kc, vc, valid, impl="ref")
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            assert err <= ATTN_TOL[dtype], (
+                f"decode_attention Sc={Sc} hd={hd} {dtype}: {err}")
+            note("decode_attention", err)
+            log(f"check decode_attention B={B} K={K} G={G} Sc={Sc} hd={hd} "
+                f"valid {int(valid.sum())} {dtype}: max abs err {err:.3g}")
+
+
+def serve_cli(argv):
+    """The serve CLI's request lines and launch counts (and its run, kept
+    in ``serve_cli.result``)."""
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.result = serve.main(argv)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    return lines
+
+
+def check_generated(label, run_requests, vocab):
+    for r in run_requests:
+        assert bool(((r.tokens >= 0) & (r.tokens < vocab)).all()), label
+        assert bool(torch.isfinite(r.logits).all()), f"{label}: logits"
+
+
+def lm_serve_runs(counted, runs, zero_counts):
+    """Phase 4 for the LM slice: hymba-1.5b at full width and depth through
+    the serve CLI (run (a), the CLI's defaults, and run (b), a prompt past
+    the window), the wave server, and falcon-mamba-7b cut to 8 layers.
+    Returns run (a)'s result."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.serving import Request, SlotServer
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    hymba = get_config("hymba-1.5b")
+    L = hymba.n_layers
+    label = "serve hymba-1.5b (a) B=4 prompt 16 gen 32 x3"
+    t0 = time.perf_counter()
+    lines = counted(label, lambda: serve_cli(
+        ["--arch", "hymba-1.5b", "--batch", "4", "--prompt-len", "16",
+         "--gen-len", "32", "--requests", "3"]))
+    run_a = serve_cli.result
+    log(f"  {label}: {time.perf_counter() - t0:.2f} s with the init")
+    assert len(lines) == 4 and json.loads(lines[-1])["kernel_launches"]
+    check_generated(label, run_a.requests, hymba.vocab_size)
+    assert runs[label] == zero_counts(selective_scan=3 * L,
+                                      flash_attention=3 * L,
+                                      decode_attention=3 * 32 * L), runs
+
+    label = "serve hymba-1.5b (b) B=1 prompt 4096 gen 16"
+    lines = counted(label, lambda: serve_cli(
+        ["--arch", "hymba-1.5b", "--batch", "1", "--prompt-len", "4096",
+         "--gen-len", "16", "--requests", "1"]))
+    assert LONG["P"] > hymba.sliding_window       # the ring wraps
+    check_generated(label, serve_cli.result.requests, hymba.vocab_size)
+    assert runs[label] == zero_counts(selective_scan=L, flash_attention=L,
+                                      decode_attention=16 * L), runs
+    serve_cli.result = None
+
+    label = "SlotServer hymba-1.5b 4 slots x 10 requests"
+    server = SlotServer(hymba, run_a.params, slots=4, prompt_len=16,
+                        max_new_tokens=32, eos_id=2, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for i in range(10):
+        server.submit(Request(i, torch.randint(
+            0, hymba.vocab_size, (16,), generator=gen, device="cuda"),
+            max_new_tokens=32 if i % 3 else 12))
+    done = counted(label, server.run)
+    assert sorted(c.request_id for c in done) == list(range(10))
+    for c in done:
+        assert 1 <= len(c.tokens) <= 32
+        assert all(0 <= t < hymba.vocab_size for t in c.tokens)
+    snap = server.snapshot()
+    log(f"  snapshot: {json.dumps(snap)}")
+    assert snap["requests"] == 10 and snap["slots"] == 4
+    assert runs[label] == zero_counts(
+        selective_scan=3 * L, flash_attention=3 * L,
+        decode_attention=server.decode_steps * L), runs
+
+    label = "serve falcon-mamba-7b 8 of 64 layers B=4 prompt 16 gen 16 x2"
+    falcon = dataclasses.replace(get_config("falcon-mamba-7b"), n_layers=8)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def falcon_run():
+        params = transformer.init_params(falcon, gen)
+        out = []
+        for _ in range(2):
+            prompt = torch.randint(0, falcon.vocab_size, (4, 16),
+                                   generator=gen, device="cuda")
+            t0 = time.perf_counter()
+            toks, logits = serve.generate(falcon, params, prompt, 16, gen)
+            torch.cuda.synchronize()
+            log(f"  falcon request: 16 tokens x 4 seqs in "
+                f"{time.perf_counter() - t0:.2f}s")
+            out.append(serve.RequestRun(prompt, toks, logits, 0.0))
+        return out
+
+    check_generated(label, counted(label, falcon_run), falcon.vocab_size)
+    assert runs[label] == zero_counts(selective_scan=2 * 8), runs
+    return run_a
+
+
+def teacher_forced(cfg, params, prompt, gen_len, tokens=None, gen=None):
+    """prefill and ``gen_len`` decode steps, fed ``tokens`` (B, gen_len)
+    or tokens sampled from ``gen``; returns (tokens, logits before each
+    step and after the last, final state)."""
+    from repro_torch.models import transformer
+    from repro_torch.serve import sampling
+    state, logits = transformer.prefill(cfg, params, prompt,
+                                        gen_budget=gen_len)
+    seen, fed = [logits], []
+    noise = None if tokens is not None else sampling.gumbel_source(gen)
+    for t in range(gen_len):
+        tok = (tokens[:, t] if tokens is not None
+               else sampling.sample(logits, noise))
+        fed.append(tok)
+        state, logits = transformer.decode_step(cfg, params, state,
+                                                tok[:, None])
+        seen.append(logits)
+    return torch.stack(fed, 1), seen, state
+
+
+def lm_cuda_vs_ref(run_a):
+    """Phase 5 for the LM slice: the kernels against the model's plain
+    paths end to end, float32 (bounded) and bfloat16 (reported)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=4,
+                              dtype="float32")
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(3))
+    report = {}
+    for prompt_len in (16, 2100):
+        gen = torch.Generator(device="cuda").manual_seed(prompt_len)
+        prompt = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                               generator=gen, device="cuda")
+        out = {}
+        for mode in ("cuda", "ref"):
+            kernels.reset_launch_counts()
+            prev = kernels.set_kernel_mode(mode)
+            try:
+                out[mode] = teacher_forced(
+                    cfg, params, prompt, 8,
+                    tokens=out["cuda"][0] if mode == "ref" else None,
+                    gen=gen)
+            finally:
+                kernels.set_kernel_mode(prev)
+            torch.cuda.synchronize()
+            lm = {k: v for k, v in kernels.launch_counts().items()
+                  if k in ("selective_scan", "flash_attention",
+                           "decode_attention")}
+            assert all((n > 0) == (mode == "cuda") for n in lm.values()), (
+                mode, lm)
+        (_, got_l, got_s), (_, want_l, want_s) = out["cuda"], out["ref"]
+        logit_err = max(max_err(g, w) for g, w in zip(got_l, want_l))
+        state_err = {k: max_err(got_s[k], want_s[k])
+                     for k in ("k", "v", "conv", "ssm")}
+        assert torch.equal(got_s["cache_pos"], want_s["cache_pos"])
+        assert logit_err <= LM_F32_TOL and max(state_err.values()) <= \
+            LM_F32_TOL, (prompt_len, logit_err, state_err)
+        report[f"f32 prompt {prompt_len}"] = {
+            "P": prompt_len + cfg.n_meta_tokens, "max_abs_logit_err":
+            logit_err, "max_abs_state_err": state_err,
+            "logit_magnitude": max(float(w.abs().max()) for w in want_l)}
+        log(f"reference: hymba-1.5b f32 4 layers, prompt {prompt_len} "
+            f"(P {prompt_len + cfg.n_meta_tokens}), cuda vs ref: max "
+            f"|dlogit| {logit_err:.3g} over prefill + 8 steps, state "
+            f"{json.dumps(state_err)} (bound {LM_F32_TOL})")
+    del params
+
+    # bfloat16: run (a)'s first request, teacher-forced through the plain
+    # paths, against the logits the kernels gave
+    req = run_a.requests[0]
+    prev = kernels.set_kernel_mode("ref")
+    try:
+        _, want_l, _ = teacher_forced(run_a.cfg, run_a.params, req.prompt, 8,
+                                      tokens=req.tokens[:, :8])
+    finally:
+        kernels.set_kernel_mode(prev)
+    got_l = [req.logits[:, t] for t in range(9)]
+    err = max(max_err(g, w) for g, w in zip(got_l, want_l))
+    agree = float(torch.stack([g.argmax(-1) == w.argmax(-1) for g, w in
+                               zip(got_l, want_l)]).float().mean())
+    report["bf16 run (a) request 0"] = {"max_abs_logit_err": err,
+                                        "top1_agreement": agree}
+    log(f"reference: hymba-1.5b bf16 run (a) request 0, cuda vs ref over "
+        f"prefill + 8 steps: max |dlogit| {err:.3g}, top-1 agreement "
+        f"{agree:.4f} (reported, no bound)")
+    return report
+
+
+def time_lm_kernels(timings, gen):
+    """Phase 6 for the LM kernels, at run (a)'s shapes ("main") and the long
+    request's: call and device ms, plain ms, the bound, and one
+    scaled_dot_product_attention call with the same mask as the library
+    yardstick for the attention kernels."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    K, G, hd, W = 5, 5, 64, 2048
+    for label, shp in (("main", HYMBA), ("long", LONG)):
+        B, S = shp["B"], shp["P"]
+        long = label == "long"
+        q, k, v = attn_inputs(B, S, K, G, hd, torch.bfloat16, gen)
+        o = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=W)
+        rows = torch.arange(S, device="cuda")
+        band = (rows[None, :] <= rows[:, None]) & (
+            rows[:, None] - rows[None, :] < W)
+        pairs = int(band.sum())                  # (row, key) pairs seen
+        qh = q.reshape(B, S, K * G, hd).transpose(1, 2).contiguous()
+        kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+        timings[label, "flash_attention"] = measure(
+            "flash_attention", f"B={B} S={S} H=25 K=5 hd=64 window {W} bf16",
+            0, nbytes(q, k, v, o),
+            lambda: fa_ops.flash_attention_cuda(q, k, v, causal=True,
+                                                window=W),
+            lambda: fa_ops.flash_attention(q, k, v, causal=True, window=W,
+                                           impl="ref"),
+            20 if long else 200, 3 if long else 20,
+            library=lambda: sdpa(qh, kh, vh, attn_mask=band,
+                                 enable_gqa=True),
+            plain_graph=not long, ops=4 * hd * pairs * B * K * G,
+            rate=BF16_OPS_PER_S)
+
+        Sc = min(W, S + shp["gen"])
+        qd, kc, vc, valid = decode_inputs(B, K, G, Sc, hd, torch.bfloat16,
+                                          1.0, gen)
+        od = dec_ops.decode_attention_cuda(qd, kc, vc, valid)
+        n_valid = int(valid.sum())
+        qdh = qd.reshape(B, K * G, 1, hd)
+        kch, vch = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+        timings[label, "decode_attention"] = measure(
+            "decode_attention", f"B={B} Sc={Sc} ({n_valid} valid) H=25 K=5 "
+            f"hd=64 bf16", 0,
+            nbytes(qd, od, valid) + 2 * B * K * n_valid * hd * 2,
+            lambda: dec_ops.decode_attention_cuda(qd, kc, vc, valid),
+            lambda: dec_ops.decode_attention(qd, kc, vc, valid, impl="ref"),
+            200, 50,
+            library=lambda: sdpa(qdh, kch, vch,
+                                 attn_mask=valid.view(1, 1, 1, Sc),
+                                 enable_gqa=True),
+            ops=4 * hd * n_valid * B * K * G, rate=BF16_OPS_PER_S)
+
+        Di, N = 3200, 16
+        args = scan_inputs(B, S, Di, N, gen)
+        y, h = scan_ops.selective_scan_cuda(*args)
+        timings[label, "selective_scan"] = measure(
+            "selective_scan", f"B={B} S={S} Di={Di} N={N}", 0,
+            nbytes(*args, y, h),
+            lambda: scan_ops.selective_scan_cuda(*args),
+            lambda: scan_ops.selective_scan_ref(*args),
+            20 if long else 100, 1 if long else 3, plain_graph=not long,
+            # per (b, t, d, n): dt * A, exp, abar * h, dx * B, +, h * C, +
+            ops=7 * B * S * Di * N)
 
 
 # ------------------------------------------------------------------ main
@@ -471,6 +874,8 @@ def main() -> int:
                 f"sumtree_update cap={cap} B={B} differs")
             assert bool((tree.winner == -1).all()), "scratch not reset"
         log(f"check sumtree_find/sumtree_update cap={cap}: exact")
+    check_lm_kernels(errs, gen)
+
     # 4. main path
     runs = {}
 
@@ -628,6 +1033,9 @@ def main() -> int:
     log(f"  ddpg prioritized: ring {ring.size} of {CAP}, tree total "
         f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
 
+    # slice 4: LM serving, hymba-1.5b and falcon-mamba-7b
+    run_a = lm_serve_runs(counted, runs, zero_counts)
+
     # 5. reference: kernels vs plain versions end to end on small runs
     def cuda_vs_ref(label, spec, plane=lambda res: []):
         """Run ``spec`` with the kernels and with the plain versions; the
@@ -674,6 +1082,8 @@ def main() -> int:
         env="pendulum", algo="ddpg", buffer="prioritized",
         buffer_kwargs={"capacity": 4096, "batch_size": 64},
         env_kwargs={"max_episode_steps": 25}, schedule=small), replay_plane)
+    lm_report = lm_cuda_vs_ref(run_a)
+    del run_a
 
     # 6. timings at the main path's shapes (10 samplers of 16 envs), and at
     # the vector path's
@@ -757,6 +1167,7 @@ def main() -> int:
             lambda: tree_ops.sumtree_update_cuda(tree, upd_idx, vals),
             lambda: tree_ops.sumtree_update_ref(tree, upd_idx, vals), 50, 10,
             plain_graph=False)
+    time_lm_kernels(timings, gen)
     entries = []
     for name in kernels.KERNELS:
         entries.append({
@@ -768,6 +1179,10 @@ def main() -> int:
     log(json.dumps({"kernels_at_vector_shapes": [
         {"name": name, **t} for (label, name), t in timings.items()
         if label == "vector"]}))
+    log(json.dumps({"kernels_at_long_request": [
+        {"name": name, **t} for (label, name), t in timings.items()
+        if label == "long"]}))
+    log(json.dumps({"lm_cuda_vs_ref": lm_report}))
     log(json.dumps({"kernels_at_add_shapes": [
         {"name": name, **t} for (label, name), t in timings.items()
         if label == "add"]}))

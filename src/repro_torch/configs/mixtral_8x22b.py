@@ -1,0 +1,20 @@
+"""mixtral-8x22b — 8-expert top-2 MoE with SWA. [arXiv:2401.04088]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b",
+    family="moe",
+    n_layers=56,
+    d_model=6144,
+    vocab_size=32768,
+    n_heads=48,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=16384,
+    n_experts=8,
+    top_k=2,
+    sliding_window=4096,
+    rope_theta=1_000_000.0,
+    source="arXiv:2401.04088 (Mixtral family, 8x22B card: 56L d_model=6144 "
+           "48H GQA kv=8 d_ff=16384 vocab=32768, 8 experts top-2, SWA)",
+)

@@ -14,6 +14,13 @@ mapped:
   list of layers) onto ``DDPGParams``, with its two Adam states (actor,
   critic).
 
+The sequence model's ``init_params`` tree (``embed``, the stacked
+``layers``, ``final_norm``, ``lm_head``, ``value_head``, ``meta_tokens``)
+maps onto ``transformer.LM`` by name: its ``(in, out)`` matrices are kept
+as they are (the port multiplies ``x @ w`` too), and the leading ``L`` axis
+of ``layers`` is unstacked onto the per-layer modules. ``LMEnv``'s reward
+table is carried across as it is.
+
 Adam moments are lists in the order of the port's parameters (each layer's
 weight, then bias). Inputs and outputs are numpy arrays (any array type
 ``np.asarray`` accepts), so nothing here imports JAX.
@@ -26,7 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.algos import ddpg, sac
+from repro_torch.envs.lm_env import LMEnv
 from repro_torch.models.mlp_policy import MLPPolicy
+from repro_torch.models.transformer import LM
 from repro_torch.optim.adam import AdamState
 
 
@@ -195,3 +204,79 @@ def ddpg_adam_states_to_jax(states) -> Tuple[Tuple[int, Any, Any], ...]:
     like the reference's actor and critic layer lists (numpy leaves)."""
     return tuple((s.step, _net_tree(_numpy(s.mu)), _net_tree(_numpy(s.nu)))
                  for s in states)
+
+
+# ------------------------------------------------------------------- LM
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}."))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def lm_params_from_jax(cfg, tree: Dict[str, Any], device="cpu") -> LM:
+    """A reference ``transformer.init_params`` tree (numpy leaves) ->
+    ``LM`` on ``device``. Every parameter must be present with its shape;
+    values pass through float32 into the parameter's dtype, which is exact
+    for float32 and bfloat16 leaves."""
+    flat = {}
+    for key, x in _flatten(tree).items():
+        x = np.array(x, np.float32)      # a writable copy
+        if key.startswith("layers."):
+            for i in range(x.shape[0]):
+                flat[f"layers.{i}.{key[len('layers.'):]}"] = x[i]
+        else:
+            flat[key] = x
+    model = LM(cfg, device=device)
+    params = dict(model.named_parameters())
+    if set(params) != set(flat):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(params) - set(flat))}, unknown "
+                         f"{sorted(set(flat) - set(params))}")
+    with torch.no_grad():
+        for name, p in params.items():
+            if tuple(p.shape) != flat[name].shape:
+                raise ValueError(f"{name}: shape {flat[name].shape} for a "
+                                 f"{tuple(p.shape)} parameter")
+            p.copy_(torch.from_numpy(flat[name]))
+    return model
+
+
+def lm_params_to_jax(model: LM) -> Dict[str, Any]:
+    """``LM`` -> the reference's tree of numpy arrays, per-layer parameters
+    stacked on a leading ``L`` axis. Float32 parameters come out as they
+    are; bfloat16 ones as their float32 values."""
+    tree: Dict[str, Any] = {}
+    stacked: Dict[str, List[np.ndarray]] = {}
+    for name, p in model.named_parameters():
+        x = p.detach().float().cpu().numpy()
+        if name.startswith("layers."):
+            _, i, rest = name.split(".", 2)
+            stacked.setdefault(rest, []).append(x)
+            continue
+        node = tree
+        *path, leaf = name.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = x
+    layers_tree = tree.setdefault("layers", {})
+    for rest, xs in stacked.items():
+        node = layers_tree
+        *path, leaf = rest.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = np.stack(xs)
+    return tree
+
+
+def lm_env_from_jax(vocab_size: int, episode_len: int, reward_table,
+                    repeat_penalty: float = 0.5, device="cpu") -> LMEnv:
+    """The reference's ``LMEnv`` fields (its table as a numpy array) ->
+    the port's ``LMEnv`` on ``device``."""
+    table = torch.from_numpy(np.array(reward_table, np.float32))
+    return LMEnv(vocab_size=vocab_size, episode_len=episode_len,
+                 reward_table=table.to(device),
+                 repeat_penalty=repeat_penalty)

@@ -23,7 +23,10 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"env_step": "env_step.cu", "gae": "gae.cu",
-           "replay_ring": "replay_ring.cu", "sum_tree": "sum_tree.cu"}
+           "replay_ring": "replay_ring.cu", "sum_tree": "sum_tree.cu",
+           "flash_attention": "flash_attention.cu",
+           "decode_attention": "decode_attention.cu",
+           "selective_scan": "selective_scan.cu"}
 FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
          "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"

@@ -1,0 +1,5 @@
+from repro_torch.kernels.decode_attention.ops import (  # noqa: F401
+    decode_attention,
+    decode_attention_cuda,
+)
+from repro_torch.kernels.decode_attention.ref import decode_ref  # noqa: F401

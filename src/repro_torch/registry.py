@@ -3,8 +3,10 @@
 
 Only what is ported is registered: envs ``pendulum``, ``cartpole`` and
 ``cheetah``; algos ``ppo``, ``trpo``, ``ddpg`` and ``sac``; backend
-``inline``; buffers ``fifo``, ``uniform`` and ``prioritized``. The built-in entries of each
-kind live with their implementations and are imported on first lookup.
+``inline``; buffers ``fifo``, ``uniform`` and ``prioritized``; the model
+archs of ``repro_torch.configs`` (kind ``arch``). The built-in entries of
+each kind live with their implementations and are imported on first
+lookup.
 Registering a duplicate name raises ``ValueError``; an unknown name raises
 ``KeyError`` listing the registered choices.
 """
@@ -18,6 +20,7 @@ _BUILTIN_MODULES = {
     "algo": "repro_torch.algos.api",
     "backend": "repro_torch.core.backends",
     "buffer": "repro_torch.data.buffers",
+    "arch": "repro_torch.configs",
 }
 
 _REGISTRIES: Dict[str, Dict[str, Callable[..., Any]]] = {}

@@ -14,17 +14,32 @@ leaves within 4 ulp per element, or 4 ulp of the leaf's magnitude where
 cancellation leaves a value near zero (``sinf``/``cosf`` may differ from
 ATen's by an ulp). The replay-ring and sum-tree kernels exactly: they move
 bytes, or compare and subtract/add as the plain versions do.
+
+The LM kernels against their plain versions with ``tests/test_kernels.py``'s
+bounds for the Pallas kernels: flash and decode attention ``atol`` 2e-5 in
+float32 and 3e-2 in bfloat16 (sums in another order; in bfloat16 the
+output rounds to 8 bits); the selective scan 2e-4, relative where the
+state grows over a long sequence (``expf`` and ATen's ``exp`` may differ
+by an ulp, and y's sum over the state runs in another order). The hymba
+model at reduced size, kernels against plain paths, within 1e-4 on the
+logits (float32 sums in another order through two layers).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.kernels import select
+from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.env_step import ops as env_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.env_step import ref as env_ref
 from repro_torch.kernels.gae import ops as gae_ops
 from repro_torch.kernels.replay_ring import ops as ring_ops
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.sum_tree import ops as tree_ops
 from repro_torch.kernels.sum_tree import ref as tree_ref
+from repro_torch.models import transformer
 
 HORIZON = 5
 PARAMS = {"pendulum": dict(max_torque=2.0), "cartpole": dict(force_max=10.0),
@@ -305,3 +320,172 @@ def test_replay_kernels_reject_what_they_cannot_take(cuda):
         tree_ops.sumtree_update_cuda(
             tree, torch.zeros(2, dtype=torch.int32, device=cuda),
             torch.ones(3, device=cuda))
+
+
+# ------------------------------------------------------------ LM kernels
+def _randn(rng, shape, device, dtype=torch.float32):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(device=device, dtype=dtype)
+
+
+def _scan_inputs(rng, B, S, Di, N, device, h0_scale=0.0):
+    softplus = lambda x: np.log1p(np.exp(x))  # noqa: E731
+    f = lambda x: torch.from_numpy(x.astype(np.float32)).to(device)  # noqa
+    dt = f(softplus(rng.standard_normal((B, S, Di))) * 0.1)
+    A = f(-np.exp(rng.standard_normal((Di, N)) * 0.2))
+    b, c, x = (f(rng.standard_normal(s)) for s in ((B, S, N), (B, S, N),
+                                                   (B, S, Di)))
+    h0 = f(rng.standard_normal((B, Di, N)) * h0_scale)
+    return dt, A, b, c, x, h0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Di,N,h0_scale", [
+    (4, 144, 3200, 16, 0.0),       # hymba's prefill
+    (3, 37, 100, 5, 0.0),          # ragged Di, S and N
+    (1, 1, 1, 1, 1.0),
+    (2, 300, 256, 16, 1.0),        # nonzero h0, several staged chunks
+    (1, 4224, 256, 16, 0.5),       # the long request's S
+])
+def test_selective_scan_kernel_matches_plain(cuda, B, S, Di, N, h0_scale):
+    rng = np.random.default_rng(B * S + Di + N)
+    args = _scan_inputs(rng, B, S, Di, N, cuda, h0_scale)
+    before = scan_ops.selective_scan_cuda.launches
+    y, h = scan_ops.selective_scan(*args, impl="cuda")
+    yr, hr = scan_ops.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert scan_ops.selective_scan_cuda.launches == before + 1
+    for got, want in ((y, yr), (h, hr)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,K,G,hd,causal,window", [
+    (4, 144, 5, 5, 64, True, 2048),      # hymba's prefill
+    (1, 300, 2, 2, 32, True, 100),       # window inside the sequence
+    (1, 200, 1, 4, 128, True, 0),        # causal, no window
+    (2, 129, 2, 1, 64, False, 0),        # non-causal
+    (1, 37, 2, 3, 64, False, 9),         # window without causality
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, S, K, G, hd,
+                                              causal, window):
+    rng = np.random.default_rng(S * hd + K)
+    q = _randn(rng, (B, S, K, G, hd), cuda, dtype)
+    k = _randn(rng, (B, S, K, hd), cuda, dtype)
+    v = _randn(rng, (B, S, K, hd), cuda, dtype)
+    before = fa_ops.flash_attention_cuda.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                 impl="cuda")
+    want = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="ref")
+    torch.cuda.synchronize()
+    assert fa_ops.flash_attention_cuda.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,Sc,hd,p_valid", [
+    (4, 5, 5, 176, 64, 0.6),             # hymba's decode, random slots
+    (1, 5, 5, 2048, 64, 1.0),            # a full ring
+    (3, 1, 5, 256, 32, 0.5),
+    (2, 2, 2, 384, 128, 0.7),
+    (1, 2, 1, 1, 64, 1.0),
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, B, K, G, Sc, hd,
+                                               p_valid):
+    rng = np.random.default_rng(Sc * hd + G)
+    q = _randn(rng, (B, K, G, hd), cuda, dtype)
+    kc = _randn(rng, (B, Sc, K, hd), cuda, dtype)
+    vc = _randn(rng, (B, Sc, K, hd), cuda, dtype)
+    valid = rng.random(Sc) < p_valid
+    valid[0] = True
+    valid = torch.from_numpy(valid).to(cuda)
+    before = dec_ops.decode_attention_cuda.launches
+    got = dec_ops.decode_attention(q, kc, vc, valid, impl="cuda")
+    want = dec_ops.decode_attention(q, kc, vc, valid, impl="ref")
+    torch.cuda.synchronize()
+    assert dec_ops.decode_attention_cuda.launches == before + 1
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=0)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_reads_cache_views(cuda):
+    """The kernel reads one layer's slice of the (L,B,C,K,hd) cache in
+    place, and a slot-less row (no valid slot) gives 0."""
+    rng = np.random.default_rng(3)
+    cache = _randn(rng, (3, 2, 40, 2, 32), cuda)
+    q = _randn(rng, (2, 2, 3, 32), cuda)
+    valid = torch.from_numpy(rng.random(40) < 0.5).to(cuda)
+    got = dec_ops.decode_attention_cuda(q, cache[1], cache[2], valid)
+    want = dec_ops.decode_attention(q, cache[1], cache[2], valid, impl="ref")
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+    none = dec_ops.decode_attention_cuda(q, cache[1], cache[2],
+                                         torch.zeros_like(valid))
+    assert torch.equal(none, torch.zeros_like(none))
+
+
+@pytest.mark.gpu
+def test_lm_kernels_reject_what_they_cannot_take(cuda):
+    q = torch.zeros(1, 8, 1, 1, 48, device=cuda)
+    kv = torch.zeros(1, 8, 1, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention_cuda(q, kv, kv)
+    q64, kv64 = q.new_zeros(1, 8, 1, 1, 64), kv.new_zeros(1, 8, 1, 64)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa_ops.flash_attention_cuda(q64.double(), kv64.double(),
+                                    kv64.double())
+    with pytest.raises(ValueError, match="valid"):
+        dec_ops.decode_attention_cuda(
+            torch.zeros(1, 1, 1, 64, device=cuda),
+            torch.zeros(1, 8, 1, 64, device=cuda),
+            torch.zeros(1, 8, 1, 64, device=cuda),
+            torch.ones(7, dtype=torch.bool, device=cuda))
+    args = _scan_inputs(np.random.default_rng(0), 1, 4, 8, 17, cuda)
+    with pytest.raises(ValueError, match="state size"):
+        scan_ops.selective_scan_cuda(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,prompt_len", [("hymba-1.5b-reduced", 80),
+                                             ("falcon-mamba-7b-reduced", 9)])
+def test_lm_kernels_vs_plain_paths_end_to_end(cuda, arch, prompt_len):
+    """prefill and 4 decode steps with the kernels and with the model's
+    plain paths, from the same weights and tokens (a hymba prompt past the
+    window of 64, so the ring wraps)."""
+    cfg = get_config(arch)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (2, prompt_len))).to(cuda)
+    forced = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 2, 1))
+                              ).to(cuda)
+    runs = {}
+    for mode in ("cuda", "ref"):
+        previous = select.set_kernel_mode(mode)
+        try:
+            state, logits = transformer.prefill(cfg, params, prompt, 4)
+            out = [logits]
+            for tok in forced:
+                state, logits = transformer.decode_step(cfg, params, state,
+                                                        tok)
+                out.append(logits)
+        finally:
+            select.set_kernel_mode(previous)
+        runs[mode] = (out, state)
+    for got, want in zip(runs["cuda"][0], runs["ref"][0]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    for key, want in runs["ref"][1].items():
+        if key != "pos":
+            torch.testing.assert_close(runs["cuda"][1][key], want,
+                                       atol=1e-4, rtol=0)

@@ -6,9 +6,11 @@ build takes seconds). Libraries are cached under ``build/torch_ext/`` in the
 checkout, keyed by a hash of the source, the flags and the compiler path;
 ``build_all`` starts one ``nvcc`` per missing library, all at once.
 
-Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that ``a*b + c``
-is never contracted into an FMA and the kernels round exactly like the
-expression order of the plain versions. No fast-math.
+Flags: ``sm_90a`` (Hopper) and ``-O3`` for every source, no fast-math; and
+per source (``SOURCES``): ``-fmad=false`` for the RL kernels, so that
+``a*b + c`` is never contracted into an FMA and they round exactly like
+the expression order of their plain versions (they are held bit for bit).
+The attention kernels are held by tolerances and build without it.
 """
 from __future__ import annotations
 
@@ -22,13 +24,16 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"env_step": "env_step.cu", "gae": "gae.cu",
-           "replay_ring": "replay_ring.cu", "sum_tree": "sum_tree.cu",
-           "flash_attention": "flash_attention.cu",
-           "decode_attention": "decode_attention.cu",
-           "selective_scan": "selective_scan.cu"}
+EXACT = ("-fmad=false",)
+# name -> (source file, flags of that source beyond FLAGS)
+SOURCES = {"env_step": ("env_step.cu", EXACT), "gae": ("gae.cu", EXACT),
+           "replay_ring": ("replay_ring.cu", EXACT),
+           "sum_tree": ("sum_tree.cu", EXACT),
+           "flash_attention": ("flash_attention.cu", ()),
+           "decode_attention": ("decode_attention.cu", ()),
+           "selective_scan": ("selective_scan.cu", EXACT)}
 FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
-         "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -45,17 +50,23 @@ def nvcc_path() -> str:
                        "are built from source at first use")
 
 
+def flags(name: str) -> tuple:
+    """nvcc's flags for the source ``name``."""
+    return FLAGS + SOURCES[name][1]
+
+
 def _lib_path(name: str, nvcc: str) -> Path:
     h = hashlib.sha256()
-    h.update((CSRC / SOURCES[name]).read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update((CSRC / SOURCES[name][0]).read_bytes())
+    h.update(" ".join(flags(name)).encode())
     h.update(nvcc.encode())
     return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}" / f"lib{name}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library in ``names`` (default: all) in
-    parallel. Returns the seconds each compile took (0.0 when cached).
+    parallel. Returns the seconds each compile took, from the common start
+    to its own end (0.0 when cached).
     Raises with the compiler's output if any compile fails."""
     nvcc = nvcc_path()
     names = list(SOURCES if names is None else names)
@@ -68,7 +79,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (subprocess.Popen(
-            [nvcc, *FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
+            [nvcc, *flags(name), "-o", str(tmp),
+             str(CSRC / SOURCES[name][0])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out)
     seconds = {name: 0.0 for name in names}
@@ -78,7 +90,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         seconds[name] = time.perf_counter() - t0
         (out.parent / "build.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[name]} (rc {proc.returncode}):\n{log}")
+            failed.append(f"{SOURCES[name][0]} (rc {proc.returncode}):\n"
+                          f"{log}")
             continue
         os.replace(tmp, out)      # atomic: a concurrent loader sees all or none
     if failed:

@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, select
+from repro_torch.kernels import build, select, stream
 from repro_torch.kernels.env_step import ref
 
 ENV_NAMES: Tuple[str, ...] = tuple(ref.STEP_BATCH_REF)
@@ -92,7 +92,7 @@ def pendulum_step_cuda(state, actions, reset_state, reset_obs, *,
         # folded in double on the host, as the reference's Python folds them
         3 * ref.PENDULUM_G / (2 * ref.PENDULUM_L),
         3.0 / (ref.PENDULUM_M * ref.PENDULUM_L ** 2),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream.current(dev))
     _raise_on(rc, "pendulum_step")
     pendulum_step_cuda.launches += 1
     return (oth, otd, ot), obs, rew, done
@@ -133,7 +133,7 @@ def cartpole_step_cuda(state, actions, reset_state, reset_obs, *,
         ref.CARTPOLE_M_CART + ref.CARTPOLE_M_POLE,
         ref.CARTPOLE_M_POLE * ref.CARTPOLE_L_POLE, 4.0 / 3.0,
         ref.CARTPOLE_X_LIMIT, ref.CARTPOLE_TH_LIMIT,
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream.current(dev))
     _raise_on(rc, "cartpole_step")
     cartpole_step_cuda.launches += 1
     return out_state, obs, rew, done
@@ -172,7 +172,7 @@ def cheetah_step_cuda(state, actions, reset_state, reset_obs, *,
         oth.data_ptr(), oom.data_ptr(), ovx.data_ptr(), opi.data_ptr(),
         ot.data_ptr(), obs.data_ptr(), rew.data_ptr(), done.data_ptr(),
         int(max_episode_steps), float(ctrl_cost), float(reward_scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream.current(dev))
     _raise_on(rc, "cheetah_step")
     cheetah_step_cuda.launches += 1
     return (oth, oom, ovx, opi, ot), obs, rew, done

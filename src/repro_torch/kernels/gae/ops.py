@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, select
+from repro_torch.kernels import build, select, stream
 from repro_torch.kernels.gae.ref import discounted_returns_ref, gae_ref
 
 
@@ -75,7 +75,7 @@ def gae_cuda(rewards: torch.Tensor, values: torch.Tensor,
                     ret.data_ptr(), float(gamma),
                     # folded in double on the host, as Python folds it
                     gamma * lam,
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    stream.current(dev))
     if rc != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError {rc}")
     gae_cuda.launches += 1
@@ -103,7 +103,7 @@ def discounted_returns_cuda(rewards: torch.Tensor, dones: torch.Tensor,
     rc = _lib().discounted_returns(
         T, B, rewards.data_ptr(), dones.data_ptr(), last_value.data_ptr(),
         ret.data_ptr(), float(gamma),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream.current(dev))
     if rc != 0:
         raise RuntimeError(
             f"discounted_returns kernel launch failed: cudaError {rc}")

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import build, select
+from repro_torch.kernels import build, select, stream
 from repro_torch.kernels.replay_ring.ref import ring_gather_ref, ring_insert_ref
 
 _P = ctypes.c_void_p
@@ -78,7 +78,7 @@ def ring_insert_cuda(storage: torch.Tensor, batch: torch.Tensor,
         return storage
     rc = _lib().ring_insert(
         storage.data_ptr(), batch.data_ptr(), cap, n, int(start) % cap,
-        row_bytes, torch.cuda.current_stream(storage.device).cuda_stream)
+        row_bytes, stream.current(storage.device))
     _raise_on(rc, "ring_insert")
     ring_insert_cuda.launches += 1
     return storage
@@ -107,7 +107,7 @@ def ring_gather_cuda(storage: torch.Tensor, idx: torch.Tensor
     rc = _lib().ring_gather(
         out.data_ptr(), storage.data_ptr(), idx.data_ptr(), storage.shape[0],
         idx.shape[0], row_bytes,
-        torch.cuda.current_stream(storage.device).cuda_stream)
+        stream.current(storage.device))
     _raise_on(rc, "ring_gather")
     ring_gather_cuda.launches += 1
     return out

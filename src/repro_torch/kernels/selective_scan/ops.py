@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, select
+from repro_torch.kernels import build, select, stream
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 MAX_STATE = 16          # the kernel holds h[N] in registers
@@ -64,7 +64,7 @@ def selective_scan_cuda(dt: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
     rc = _lib().selective_scan(
         B, S, Di, N, dt.data_ptr(), A.data_ptr(), b.data_ptr(), c.data_ptr(),
         x.data_ptr(), h0.data_ptr(), y.data_ptr(), h_final.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream.current(dev))
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: "
                            f"cudaError {rc}")

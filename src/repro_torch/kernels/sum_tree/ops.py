@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, select
+from repro_torch.kernels import build, select, stream
 from repro_torch.kernels.sum_tree.ref import (  # noqa: F401
     SumTree,
     level_offsets,
@@ -78,7 +78,7 @@ def sumtree_find_cuda(tree: SumTree, masses: torch.Tensor) -> torch.Tensor:
         return out
     rc = _lib().sumtree_find(tree.flat.data_ptr(), masses.data_ptr(),
                              out.data_ptr(), cap, cap.bit_length() - 1, B,
-                             torch.cuda.current_stream(dev).cuda_stream)
+                             stream.current(dev))
     _raise_on(rc, "sumtree_find")
     sumtree_find_cuda.launches += 1
     return out
@@ -107,7 +107,7 @@ def sumtree_update_cuda(tree: SumTree, idx: torch.Tensor,
     rc = _lib().sumtree_update(tree.flat.data_ptr(), tree.winner.data_ptr(),
                                idx.data_ptr(), values.data_ptr(), cap,
                                cap.bit_length() - 1, B,
-                               torch.cuda.current_stream(dev).cuda_stream)
+                               stream.current(dev))
     _raise_on(rc, "sumtree_update")
     sumtree_update_cuda.launches += 1
     return tree

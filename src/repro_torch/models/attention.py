@@ -16,11 +16,13 @@ The model's plain paths are the reference's own functions:
 ``attention_block`` and ``attention_decode_block`` call the CUDA kernels
 (``kernels.flash_attention``, ``kernels.decode_attention``) instead on a
 CUDA tensor under the kernel mode (``kernels.select``), the seam the
-reference draws for the scan with ``ssm_block``'s ``impl``. The kernels keep
-p in float32 for the PV product where ``_block_stats`` rounds it to the
-value dtype first, so in bfloat16 they differ from the plain path by that
-rounding. The reference's sharding hints (``_head_plan``,
-``_constrain_heads``) wait for the distributed slice.
+reference draws for the scan with ``ssm_block``'s ``impl``. In bfloat16 the
+flash kernel rounds p to bfloat16 for the PV product (the tensor cores take
+it so), as ``_block_stats`` does; the decode kernel keeps p in float32
+where ``decode`` rounds it to the value dtype first, so in bfloat16 it
+differs from the plain path by that rounding. In float32 both kernels keep
+p in float32, as the plain paths do. The reference's sharding hints
+(``_head_plan``, ``_constrain_heads``) wait for the distributed slice.
 """
 from __future__ import annotations
 

@@ -361,6 +361,17 @@ def test_selective_scan_kernel_matches_plain(cuda, B, S, Di, N, h0_scale):
 
 
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# chip_smoke.py's second attention bound, which scales with the output:
+# each row's max |error| over the RMS of that row of the float32 result on
+# the same (upcast) inputs. Long rows average many keys, so |o| falls far
+# under ATTN_TOL's absolute bound there
+ATTN_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _assert_row_scaled_close(got, exact, dtype):
+    w = exact.double()
+    rel = (got.double() - w).abs().amax(-1) / w.square().mean(-1).sqrt()
+    assert float(rel.max()) <= ATTN_REL_TOL[dtype], float(rel.max())
 
 
 @pytest.mark.gpu
@@ -432,6 +443,136 @@ def test_decode_attention_kernel_reads_cache_views(cuda):
     none = dec_ops.decode_attention_cuda(q, cache[1], cache[2],
                                          torch.zeros_like(valid))
     assert torch.equal(none, torch.zeros_like(none))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,K,G,hd,causal,window", [
+    (1, 1000, 2, 3, 64, True, 0),        # S not a multiple of the tiles
+    (1, 4224, 5, 5, 64, True, 2048),     # the long request
+    (1, 1000, 1, 1, 128, True, 90),      # window edge inside a tile, G 1
+    (2, 1000, 2, 2, 32, True, 300),
+])
+def test_flash_attention_kernel_at_ragged_lengths(cuda, dtype, B, S, K, G,
+                                                  hd, causal, window):
+    rng = np.random.default_rng(S + hd + window)
+    q = _randn(rng, (B, S, K, G, hd), cuda, dtype)
+    k = _randn(rng, (B, S, K, hd), cuda, dtype)
+    v = _randn(rng, (B, S, K, hd), cuda, dtype)
+    got = fa_ops.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    want = fa_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                  impl="ref")
+    exact = fa_ops.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, window=window, impl="ref")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=0)
+    _assert_row_scaled_close(got, exact, dtype)
+
+
+def _decode_inputs(rng, B, K, G, Sc, hd, device, dtype, slots=None):
+    q = _randn(rng, (B, K, G, hd), device, dtype)
+    kc = _randn(rng, (B, Sc, K, hd), device, dtype)
+    vc = _randn(rng, (B, Sc, K, hd), device, dtype)
+    if slots is None:
+        valid = rng.random(Sc) < 0.9
+        valid[0] = True
+    else:
+        valid = np.zeros(Sc, dtype=bool)
+        valid[list(slots)] = True
+    return q, kc, vc, torch.from_numpy(valid).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,K,G,Sc,hd,slots", [
+    (2, 5, 5, 1, 64, None),              # one slot
+    (1, 5, 5, 2048, 64, (0, 2047)),      # whole chunks without a valid slot
+    (1, 2, 5, 70000, 64, None),          # past the old shared-memory limit
+])
+def test_decode_attention_kernel_edges(cuda, dtype, B, K, G, Sc, hd, slots):
+    rng = np.random.default_rng(Sc + G)
+    q, kc, vc, valid = _decode_inputs(rng, B, K, G, Sc, hd, cuda, dtype,
+                                      slots)
+    before = dec_ops.decode_attention_cuda.launches
+    got = dec_ops.decode_attention_cuda(q, kc, vc, valid)
+    want = dec_ops.decode_attention(q, kc, vc, valid, impl="ref")
+    exact = dec_ops.decode_attention(q.float(), kc.float(), vc.float(),
+                                     valid, impl="ref")
+    torch.cuda.synchronize()
+    assert dec_ops.decode_attention_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATTN_TOL[dtype], rtol=0)
+    _assert_row_scaled_close(got, exact, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,B,S,K,G,hd", [
+    ("flash", 4, 144, 5, 5, 64),         # hymba's prefill, window 2,048
+    ("decode", 4, 176, 5, 5, 64),        # hymba's decode
+    ("decode", 1, 2048, 5, 5, 64),       # the long request's full ring
+])
+def test_attention_kernel_error_scales_with_output(cuda, dtype, kernel, B, S,
+                                                   K, G, hd):
+    """At the serve runs' shapes each row's error stays a small share of
+    that row's RMS, which a wrong kernel (a key tile dropped, zeros) cannot
+    meet where |o| is below ATTN_TOL."""
+    rng = np.random.default_rng(S + B)
+    if kernel == "flash":
+        q = _randn(rng, (B, S, K, G, hd), cuda, dtype)
+        k = _randn(rng, (B, S, K, hd), cuda, dtype)
+        v = _randn(rng, (B, S, K, hd), cuda, dtype)
+        got = fa_ops.flash_attention_cuda(q, k, v, causal=True, window=2048)
+        exact = fa_ops.flash_attention(q.float(), k.float(), v.float(),
+                                       causal=True, window=2048, impl="ref")
+    else:
+        q, kc, vc, valid = _decode_inputs(rng, B, K, G, S, hd, cuda, dtype)
+        got = dec_ops.decode_attention_cuda(q, kc, vc, valid)
+        exact = dec_ops.decode_attention(q.float(), kc.float(), vc.float(),
+                                         valid, impl="ref")
+    torch.cuda.synchronize()
+    _assert_row_scaled_close(got, exact, dtype)
+
+
+@pytest.mark.gpu
+def test_decode_attention_kernel_in_a_cuda_graph(cuda):
+    """Captured in a CUDA graph and replayed, the two launches give what
+    the eager call gives, on new cache contents too."""
+    rng = np.random.default_rng(11)
+    q, kc, vc, valid = _decode_inputs(rng, 4, 5, 5, 176, 64, cuda,
+                                      torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dec_ops.decode_attention_cuda(q, kc, vc, valid)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = dec_ops.decode_attention_cuda(q, kc, vc, valid)
+    for _ in range(2):
+        graph.replay()
+        eager = dec_ops.decode_attention_cuda(q, kc, vc, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+        kc.copy_(_randn(rng, tuple(kc.shape), cuda, torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_attention_kernels_reject_unaligned_layouts(cuda):
+    """The bf16 flash kernel's TMA maps and the decode kernel's 16-byte
+    copies need 16-byte aligned rows: anything else raises ValueError."""
+    buf = torch.zeros(1 + 2 * 8 * 2 * 32, dtype=torch.bfloat16, device=cuda)
+    kv = buf[1:].view(2, 8, 2, 32)              # 2-byte offset
+    q = torch.zeros(2, 8, 2, 1, 32, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_ops.flash_attention_cuda(q, kv, kv)
+    cache = buf[1:].view(2, 8, 2, 32)
+    with pytest.raises(ValueError, match="16-byte"):
+        dec_ops.decode_attention_cuda(
+            torch.zeros(2, 2, 1, 32, dtype=torch.bfloat16, device=cuda),
+            cache, cache, torch.ones(8, dtype=torch.bool, device=cuda))
 
 
 @pytest.mark.gpu

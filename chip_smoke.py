@@ -17,7 +17,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    exactly, env float leaves within 4 ulp (or 4 ulp of the leaf's magnitude
    near zero; cart-pole at B = 1, 16, 700 and 4096 with poles falling and a
    reward scale of 0.5); the replay ring (N > cap, wraparound, cap 1,
-   float, bool and int rows) and the sum tree (capacities 1, 2, 1024 and
+   float, bool, int, bfloat16 and zero-width rows, odd heads where source
+   and destination differ mod 16 and mod 4) and the sum tree (capacities 1, 2, 1024 and
    2^20, zero-mass leaves, updates with duplicate indices) exactly; the LM
    kernels at the serve runs' shapes and ragged ones: the selective scan
    (hymba's prefill B 4 × S 144 × Di 3,200 × N 16, the long request's
@@ -45,7 +46,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
    iterations) and DDPG on cheetah with prioritized replay (the SAC run's
    budget and replay, 3 iterations). Every log must be finite with the
    expected sample count, and each kernel's count must equal the steps,
-   learns, inserts, draws and priority updates the run made. Then LM
+   learns, inserts, draws and priority updates the run made (a ring
+   insert or gather is one launch for all the leaves). Then LM
    serving at full width and depth with random weights: (a) the serve CLI
    with its defaults on hymba-1.5b (batch 4, prompt 16 + 128 meta tokens,
    32 tokens, 3 requests), (b) one prompt of 4,096 (P = 4,224, past the
@@ -75,7 +77,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
    computes the same function (``index_copy_`` for the ring insert,
    ``index_select`` for the gather), that call's time, printed as one JSON
    line ``{"kernels": [...]}``. A replay-ring time covers one call of the
-   op over the 5 stored leaves (5 launches). The discounted returns lie on
+   op over the 5 stored leaves (one launch). The discounted returns lie on
    no path (neither package calls them outside tests and benchmarks); they
    are timed at the GAE shapes. The LM kernels are timed in bfloat16 at run
    (a)'s shapes and at the long request's; their operations count the
@@ -275,13 +277,15 @@ def ring_leaves(rows, gen, kinds=None):
             out[k] = torch.randint(-9, 9, size, generator=gen,
                                    device="cuda", dtype=torch.int32)
         else:
-            out[k] = torch.randn(size, generator=gen, device="cuda")
+            out[k] = torch.randn(size, generator=gen, device="cuda"
+                                 ).to(dtype)
     return out
 
 
 MIXED_LEAVES = {"f14": ((14,), torch.float32), "f": ((), torch.float32),
                 "f4": ((4,), torch.float32), "b3": ((3,), torch.bool),
-                "i2": ((2,), torch.int32)}
+                "i2": ((2,), torch.int32), "h5": ((5,), torch.bfloat16),
+                "z": ((0,), torch.float32)}
 
 
 def random_tree(cap, filled, gen):
@@ -890,8 +894,11 @@ def main() -> int:
             assert got[k].dtype == want[k].dtype and torch.equal(
                 got[k], want[k]), f"{name}: leaf {k} differs"
 
+    # odd heads: the 56-byte rows' source and destination differ mod 16,
+    # the 3-byte and 10-byte rows' mod 4
     for cap, n, start in ((17, 5, 15), (12, 12, 7), (8, 11, 3), (1, 1, 0),
-                          (1, 3, 0), (CAP, 20000, CAP - 7000)):
+                          (1, 3, 0), (CAP, 20000, CAP - 7000),
+                          (CAP, 20000, CAP - 7001), (4099, 3000, 1001)):
         for kinds in (MIXED_LEAVES, None):
             storage = ring_leaves(cap, gen, kinds)
             batch = ring_leaves(n, gen, kinds)
@@ -1014,8 +1021,8 @@ def main() -> int:
          "--replay-capacity", "1000000", "--replay-batch", "256"]))
     check_logs("sac cheetah N=10 prioritized", logs, 3, n * per * h)
     assert runs["sac cheetah N=10 prioritized"] == zero_counts(
-        cheetah_step=3 * n * h, ring_insert=3 * n_leaves,
-        ring_gather=3 * n_leaves * updates, sumtree_find=3 * updates,
+        cheetah_step=3 * n * h, ring_insert=3,
+        ring_gather=3 * updates, sumtree_find=3 * updates,
         sumtree_update=3 * (1 + updates)), runs
     ring, tree, max_p = cli.result.runner.plane_state[0]
     assert tree.capacity == CAP and ring.size == 3 * n * per * h
@@ -1038,8 +1045,8 @@ def main() -> int:
     check_logs("sac pendulum N=10 uniform", sac_pend.logs, 2, n * per * h)
     assert sac_pend.logs[-1].mean_return != 0.0, "no pendulum episode ended"
     assert runs["sac pendulum N=10 uniform"] == zero_counts(
-        pendulum_step=2 * n * h, ring_insert=2 * n_leaves,
-        ring_gather=2 * n_leaves * updates), runs
+        pendulum_step=2 * n * h, ring_insert=2,
+        ring_gather=2 * updates), runs
     sac_runs.append(sac_pend)
     for res in sac_runs:
         for p in res.params.parameters():
@@ -1087,8 +1094,8 @@ def main() -> int:
          "--replay-capacity", "1000000", "--replay-batch", "256"]))
     check_logs(label, logs, 3, n * per * h)
     assert runs[label] == zero_counts(
-        cheetah_step=3 * n * h, ring_insert=3 * n_leaves,
-        ring_gather=3 * n_leaves * updates, sumtree_find=3 * updates,
+        cheetah_step=3 * n * h, ring_insert=3,
+        ring_gather=3 * updates, sumtree_find=3 * updates,
         sumtree_update=3 * (1 + updates)), runs
     ring, tree, max_p = cli.result.runner.plane_state[0]
     assert tree.capacity == CAP and ring.size == 3 * n * per * h

@@ -1,9 +1,9 @@
 """Uniform replay ring (port of ``repro/data/replay.py``).
 
 The scatter-insert goes through the replay-ring op (``kernels/replay_ring``):
-the plain version for CPU tensors, one CUDA launch per storage leaf on the
-card. Storage is written in place; the buffers (``data/buffers.py``) gather
-their minibatches with ``ring_gather``.
+the plain version for CPU tensors, one CUDA launch for all the storage
+leaves on the card. Storage is written in place; the buffers
+(``data/buffers.py``) gather their minibatches with ``ring_gather``.
 
 ``index`` and ``size`` are host ints, not device scalars as in the
 reference: both follow from the shapes of what was added, so the

@@ -176,30 +176,38 @@ def _leaf(rng, shape, dtype, device):
         x = rng.integers(-9, 9, shape).astype(np.int32)
     else:
         x = rng.standard_normal(shape).astype(np.float32)
-    return torch.from_numpy(x).to(device)
+    return torch.from_numpy(x).to(device=device, dtype=dtype)
 
 
+# 56-byte rows (16-byte aligned only at even slots), 4-, 16-, 3-, 8- and
+# 10-byte rows, and a leaf of zero-width rows
 LEAVES = [((14,), torch.float32), ((), torch.float32), ((4,), torch.float32),
-          ((3,), torch.bool), ((2,), torch.int32)]
+          ((3,), torch.bool), ((2,), torch.int32), ((5,), torch.bfloat16),
+          ((0,), torch.float32)]
+
+
+def _ring(rng, rows, device):
+    return {f"l{i}": _leaf(rng, (rows,) + s, d, device)
+            for i, (s, d) in enumerate(LEAVES)}
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cap,n,start", [
     (17, 5, 0), (17, 5, 15), (12, 12, 7), (8, 11, 3), (1, 1, 0), (1, 3, 0),
-    (1 << 20, 20000, (1 << 20) - 7000), (4096, 20000, 100)])
+    (1 << 20, 20000, (1 << 20) - 7000), (4096, 20000, 100),
+    # odd heads: source and destination differ mod 16 (the 56-byte rows)
+    # and mod 4 (the bool and bfloat16 rows), over many blocks
+    (1 << 20, 20000, (1 << 20) - 7001), (4099, 3000, 1001)])
 def test_ring_insert_kernel_matches_plain(cuda, cap, n, start):
     rng = np.random.default_rng(cap + n)
-    storage = {f"l{i}": _leaf(rng, (cap,) + s, d, cuda)
-               for i, (s, d) in enumerate(LEAVES)}
-    batch = {f"l{i}": _leaf(rng, (n,) + s, d, cuda)
-             for i, (s, d) in enumerate(LEAVES)}
+    storage, batch = _ring(rng, cap, cuda), _ring(rng, n, cuda)
     want = ring_ops.ring_insert_ref({k: v.clone() for k, v in storage.items()},
                                     batch, start)
     before = ring_ops.ring_insert_cuda.launches
     got = ring_ops.ring_insert(storage, batch, start, impl="cuda")
     torch.cuda.synchronize()
     assert got is storage
-    assert ring_ops.ring_insert_cuda.launches == before + len(LEAVES)
+    assert ring_ops.ring_insert_cuda.launches == before + 1
     for k in want:
         assert torch.equal(got[k], want[k]), k
 
@@ -208,8 +216,7 @@ def test_ring_insert_kernel_matches_plain(cuda, cap, n, start):
 @pytest.mark.parametrize("cap,B", [(17, 6), (1, 1), (64, 64), (1 << 20, 256)])
 def test_ring_gather_kernel_matches_plain(cuda, cap, B):
     rng = np.random.default_rng(cap * 7 + B)
-    storage = {f"l{i}": _leaf(rng, (cap,) + s, d, cuda)
-               for i, (s, d) in enumerate(LEAVES)}
+    storage = _ring(rng, cap, cuda)
     idx = rng.integers(0, cap, B).astype(np.int32)
     idx[:2] = [cap + 5, -1][:B]                  # clamped / from the end
     idx = torch.from_numpy(idx).to(cuda)
@@ -217,9 +224,65 @@ def test_ring_gather_kernel_matches_plain(cuda, cap, B):
     got = ring_ops.ring_gather(storage, idx, impl="cuda")
     want = ring_ops.ring_gather_ref(storage, idx)
     torch.cuda.synchronize()
-    assert ring_ops.ring_gather_cuda.launches == before + len(LEAVES)
+    assert ring_ops.ring_gather_cuda.launches == before + 1
     for k in want:
+        assert got[k].dtype == want[k].dtype
         assert got[k].shape == want[k].shape and torch.equal(got[k], want[k])
+
+
+@pytest.mark.gpu
+def test_ring_ops_with_nothing_to_copy_launch_nothing(cuda):
+    rng = np.random.default_rng(2)
+    storage = _ring(rng, 64, cuda)
+    empty = {"z": torch.zeros(64, 0, device=cuda)}
+    before = (ring_ops.ring_insert_cuda.launches,
+              ring_ops.ring_gather_cuda.launches)
+    ring_ops.ring_insert(storage, _ring(rng, 0, cuda), 5, impl="cuda")
+    ring_ops.ring_insert(empty, {"z": torch.ones(3, 0, device=cuda)}, 5,
+                         impl="cuda")
+    got = ring_ops.ring_gather(storage, torch.zeros(0, dtype=torch.int32,
+                                                    device=cuda), impl="cuda")
+    assert all(v.shape[0] == 0 for v in got.values())
+    got = ring_ops.ring_gather(empty, torch.ones(4, dtype=torch.int32,
+                                                 device=cuda), impl="cuda")
+    assert got["z"].shape == (4, 0)
+    torch.cuda.synchronize()
+    assert (ring_ops.ring_insert_cuda.launches,
+            ring_ops.ring_gather_cuda.launches) == before
+
+
+@pytest.mark.gpu
+def test_ring_insert_then_gather_replay_from_a_cuda_graph(cuda):
+    """One insert and one gather captured in a CUDA graph, replayed on
+    fresh rows and indices copied into the captured inputs, equal the
+    plain versions run eagerly on the same inputs."""
+    rng = np.random.default_rng(11)
+    cap, n, B, start = 4099, 3000, 256, 2001       # wraps, odd head
+    storage, batch = _ring(rng, cap, cuda), _ring(rng, n, cuda)
+    idx = torch.zeros(B, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # build, load, check once
+        ring_ops.ring_insert(storage, batch, start, impl="cuda")
+        ring_ops.ring_gather(storage, idx, impl="cuda")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        ring_ops.ring_insert(storage, batch, start, impl="cuda")
+        out = ring_ops.ring_gather(storage, idx, impl="cuda")
+    for _ in range(2):
+        for k, v in _ring(rng, n, cuda).items():
+            batch[k].copy_(v)
+        idx.copy_(torch.from_numpy(
+            rng.integers(-cap, cap + 9, B).astype(np.int32)))
+        want = ring_ops.ring_insert_ref(
+            {k: v.clone() for k, v in storage.items()}, batch, start)
+        want_out = ring_ops.ring_gather_ref(want, idx)
+        graph.replay()
+        torch.cuda.synchronize()
+        for k in want:
+            assert torch.equal(storage[k], want[k]), k
+            assert torch.equal(out[k], want_out[k]), k
 
 
 def _tree(cap, seed, device):
@@ -307,9 +370,16 @@ def test_replay_and_tree_ref_mode_launch_nothing(cuda):
 
 @pytest.mark.gpu
 def test_replay_kernels_reject_what_they_cannot_take(cuda):
-    storage = torch.zeros(8, 3, device=cuda)
+    storage = {"x": torch.zeros(8, 3, device=cuda),
+               "y": torch.zeros(8, device=cuda)}
     with pytest.raises(ValueError, match="batch"):
-        ring_ops.ring_insert_cuda(storage, torch.ones(2, 4, device=cuda), 0)
+        ring_ops.ring_insert_cuda(storage, {"x": torch.ones(2, 4, device=cuda),
+                                            "y": torch.ones(2, device=cuda)},
+                                  0)
+    with pytest.raises(ValueError, match="batch"):   # one N for all leaves
+        ring_ops.ring_insert_cuda(storage, {"x": torch.ones(2, 3, device=cuda),
+                                            "y": torch.ones(3, device=cuda)},
+                                  0)
     with pytest.raises(ValueError, match="idx"):
         ring_ops.ring_gather_cuda(storage, torch.zeros(2, dtype=torch.int64,
                                                        device=cuda))

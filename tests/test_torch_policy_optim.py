@@ -130,3 +130,30 @@ def test_clip_by_global_norm_matches_jax(scale, max_norm):
     if scale == 1.0:                # the clipped tree has norm max_norm
         total = float(torch.sqrt(sum((x ** 2).sum() for x in clipped_t)))
         assert abs(total - max_norm) < 1e-5
+
+
+@pytest.mark.parametrize("scale,max_norm", [(1.0, 0.5), (1e-3, 0.5)])
+def test_clip_by_global_norm_bfloat16_matches_jax(scale, max_norm):
+    """bfloat16 leaves (a 4,096-wide one among them): both sides square,
+    sum and scale in float32 and cast back. The float32 norms differ only
+    by summation order, so they agree to 1e-6 relative; a clipped value is
+    the float32 product rounded to bfloat16, so a scale one float32 ulp off
+    may move it by at most one bfloat16 ulp, and that is the bound held."""
+    g = convert._flat(_grads_like(jax_params(), 5, scale))
+    g.append((scale * np.random.default_rng(6).standard_normal(4096)
+              ).astype(np.float32))
+    clipped_j, norm_j = jax_clip([jnp.asarray(x, jnp.bfloat16) for x in g],
+                                 max_norm)
+    grads_t = [torch.from_numpy(np.ascontiguousarray(x)).to(torch.bfloat16)
+               for x in g]
+    clipped_t, norm_t = clip_by_global_norm(grads_t, max_norm)
+    assert norm_t.dtype == torch.float32 and norm_j.dtype == jnp.float32
+    np.testing.assert_allclose(float(norm_t), float(norm_j), rtol=1e-6)
+    for a, b in zip(clipped_t, clipped_j):
+        assert a.dtype == torch.bfloat16 and b.dtype == jnp.bfloat16
+        got = a.float().numpy()
+        want = np.asarray(b, np.float32)
+        # one bfloat16 ulp of the larger magnitude: 2^(exponent - 7)
+        ulp = np.exp2(np.floor(np.log2(np.maximum(
+            np.maximum(np.abs(got), np.abs(want)), 1e-30))) - 7)
+        assert np.all(np.abs(got - want) <= ulp)

@@ -129,3 +129,95 @@ def test_sample_indices_stay_in_the_filled_prefix():
     idx = replay.sample_indices(ts, torch.Generator().manual_seed(0), 1000)
     assert idx.dtype == torch.int32
     assert int(idx.min()) == 0 and int(idx.max()) == 4
+
+
+# ------------------------------------------------- the kernels' host plans
+PLAN_LEAVES = {"f14": ((14,), torch.float32), "f": ((), torch.float32),
+               "b3": ((3,), torch.bool), "i2": ((2,), torch.int32),
+               "h5": ((5,), torch.bfloat16)}
+
+
+def _plan_leaf(rng, rows, shape, dtype):
+    x = rng.standard_normal((rows,) + shape).astype(np.float32)
+    if dtype == torch.bool:
+        return torch.from_numpy(x > 0)
+    return torch.from_numpy(x * 9).to(dtype)
+
+
+def _bytes(t):
+    return t.reshape(-1).view(torch.uint8)
+
+
+def _row_bytes(storage):
+    return [v[0].numel() * v.element_size() for v in storage.values()]
+
+
+@pytest.mark.parametrize("cap,n,start", [
+    (17, 5, 0), (17, 5, 15), (12, 12, 7), (8, 11, 3), (1, 1, 0), (1, 3, 0),
+    (4096, 20000, 100)])
+def test_insert_segments_applied_as_byte_copies_match_plain(cap, n, start):
+    """The kernel's plan: at most two byte segments per leaf, which copied
+    byte for byte give exactly what ``ring_insert_ref`` writes."""
+    rng = np.random.default_rng(cap * 31 + n)
+    storage = {k: _plan_leaf(rng, cap, s, d)
+               for k, (s, d) in PLAN_LEAVES.items()}
+    batch = {k: _plan_leaf(rng, n, s, d) for k, (s, d) in PLAN_LEAVES.items()}
+    want = ring.ring_insert_ref({k: v.clone() for k, v in storage.items()},
+                                batch, start)
+    segments = ring.insert_segments(_row_bytes(storage), cap, n, start)
+    names = list(storage)
+    for leaf in range(len(names)):
+        assert sum(s[0] == leaf for s in segments) <= 2
+    for leaf, src, dst, nbytes in segments:
+        k = names[leaf]
+        _bytes(storage[k])[dst:dst + nbytes] = _bytes(batch[k])[
+            src:src + nbytes]
+    for k in want:
+        assert torch.equal(storage[k], want[k]), k
+
+
+def test_insert_segments_skip_empty_inserts_and_zero_width_rows():
+    assert ring.insert_segments([4, 8], 16, 0, 3) == []
+    assert ring.insert_segments([0, 4], 16, 5, 14) == [
+        (1, 0, 56, 8), (1, 8, 0, 12)]
+
+
+@pytest.mark.parametrize("rows", [0, 1, 3, 256])
+def test_gather_layout_is_aligned_and_disjoint(rows):
+    """Each leaf's block of the one output buffer starts at a multiple of
+    16 bytes and no two overlap; the views cut from the buffer have the
+    leaves' shapes and dtypes, and writing each leaf's rows through its
+    view leaves the others' intact."""
+    leaves = dict(PLAN_LEAVES, z=((0,), torch.float32))
+    rng = np.random.default_rng(rows)
+    storage = {k: _plan_leaf(rng, 4, s, d) for k, (s, d) in leaves.items()}
+    row_bytes = _row_bytes(storage)
+    offsets, total = ring.gather_layout(row_bytes, rows)
+    spans = sorted((off, off + rows * rb)
+                   for off, rb in zip(offsets, row_bytes))
+    assert all(off % ring.ALIGN == 0 for off in offsets)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= total and total % ring.ALIGN == 0
+    plan = ring.Leaves.of(list(storage.values()))
+    total_p, views, table = ring.gather_plan(plan, rows)
+    assert total_p == total
+    assert list(table) == [x for v, off, rb in zip(
+        storage.values(), offsets, row_bytes) if rb
+        for x in (v.data_ptr(), off, rb)]
+    buf = torch.zeros(total, dtype=torch.uint8)
+    got = dict(zip(storage, ring.gather_views(buf, views)))
+    idx = torch.from_numpy(rng.integers(0, 4, rows))
+    for k, v in storage.items():
+        assert got[k].shape == (rows,) + v.shape[1:]
+        assert got[k].dtype == v.dtype and got[k].is_contiguous()
+        got[k].copy_(v[idx])
+    for k, v in storage.items():
+        assert torch.equal(got[k], v[idx]), k
+
+
+def test_replay_kernels_name_their_leaf_limit():
+    storage = {f"l{i}": torch.zeros(4) for i in range(ring.MAX_LEAVES + 1)}
+    with pytest.raises(ValueError, match=f"{ring.MAX_LEAVES} leaves"):
+        ring.ring_insert_cuda(storage, storage, 0)
+    with pytest.raises(ValueError, match=f"{ring.MAX_LEAVES} leaves"):
+        ring.ring_gather_cuda(storage, torch.zeros(2, dtype=torch.int32))

@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --timing-only    # build, then phase 6 alone
 
 Phases, each of which raises (and so exits non-zero) on failure:
 
@@ -22,10 +23,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    2^20, zero-mass leaves, updates with duplicate indices) exactly; the LM
    kernels at the serve runs' shapes and ragged ones: the selective scan
    (hymba's prefill B 4 × S 144 × Di 3,200 × N 16, the long request's
-   S 4,224, B 3 × S 37 × Di 100 × N 5, a nonzero h0) within 2e-4 relative
-   to max(1, |value|), flash attention (hymba at S 144 and 4,224 with the
-   window 2,048, hd 128 causal, hd 32 non-causal, S 1,000, window edges
-   inside the 64-key tiles, G 1; bfloat16 on the tensor-core kernel,
+   S 4,224, which splits time into chunks, falcon-mamba-7b's B 4 × S 16 ×
+   Di 8,192, B 3 × S 37 × Di 100 × N 5, a nonzero h0, ragged chunks at N 1
+   and 5, S 0) within 2e-4 relative to max(1, |value|), flash attention
+   (hymba at S 144 and 4,224 with the window 2,048, hd 128 causal, hd 32
+   non-causal, S 1,000, window edges inside the 64-key tiles, G 1;
+   bfloat16 on the tensor-core kernel,
    float32 on the CUDA-core one) and decode attention (176 slots with a
    random validity mask, a full ring of 2,048, 2,048 slots with only 0 and
    2,047 valid so that whole chunks are empty, 1 slot, 70,000 slots, hd 32
@@ -79,20 +82,30 @@ Phases, each of which raises (and so exits non-zero) on failure:
    line ``{"kernels": [...]}``. A replay-ring time covers one call of the
    op over the 5 stored leaves (one launch). The discounted returns lie on
    no path (neither package calls them outside tests and benchmarks); they
-   are timed at the GAE shapes. The LM kernels are timed in bfloat16 at run
-   (a)'s shapes and at the long request's; their operations count the
-   products of the (row, key) pairs the masks let through at the bf16
-   tensor-core rate (989 TFLOP/s), the scan's at the float32 rate, and
-   their library yardstick is one ``scaled_dot_product_attention`` call
-   (``enable_gqa``, the band or validity mask) on the same values in its
-   own layout; the scan has none.
+   are timed at the GAE shapes; the tree update at the priority update's
+   B 256 and at an add's B 20,000. The LM kernels are timed in bfloat16 at
+   run (a)'s shapes and at the long request's (the scan, float32, also at
+   falcon-mamba-7b's, with a log line giving a second floor beside its
+   bound: one MUFU.EX2 per (b, t, d, n) at 16 per SM per clock); their
+   operations count the products of the (row, key) pairs the masks let
+   through at the bf16 tensor-core rate (989 TFLOP/s), the scan's at the
+   float32 rate, and their library yardstick is one
+   ``scaled_dot_product_attention`` call (``enable_gqa``, the band or
+   validity mask) on the same values in its own layout; the scan has none.
+   Every entry also gives the kernels one call launches: the kernel nodes
+   of a CUDA graph that captured it. With ``--timing-only`` the script builds the kernels and runs this phase
+   alone, on the same inputs, logging the main shapes' entries as
+   ``kernels_at_main_shapes`` (no checks, no launch counts): run from two
+   checkouts in turn, it times two versions of the kernels on one card.
 
 The last line is ``{"ok": true, "device": {...}}``; it is printed only when
 every phase passed. Without a CUDA device the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -112,6 +125,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# the scan's second floor: one MUFU.EX2 per (b, t, d, n); the SFUs give 16
+# results per SM per clock: 132 SMs at the 1,980 MHz boost clock (H100 SXM)
+EX2_PER_S = 16 * 132 * 1.98e9
 ENV_ULPS = 4
 # the LM kernels against their plain versions (tests/test_kernels.py's
 # bounds for the Pallas kernels): attention in float32 / bfloat16, and the
@@ -175,6 +191,12 @@ SOURCES = {
 CHEETAH_LEAVES = {"obs": (14,), "actions": (6,), "rewards": (),
                   "next_obs": (14,), "discounts": ()}
 CAP = 1 << 20
+MAIN_SAMPLERS = (10, 16, 125)   # the main path: samplers, envs each, horizon
+# the timing lines besides the kernels line: shape label, JSON key
+TIMING_LINES = (("vector", "kernels_at_vector_shapes"),
+                ("long", "kernels_at_long_request"),
+                ("falcon", "kernels_at_falcon_shapes"),
+                ("add", "kernels_at_add_shapes"))
 
 
 def log(msg: str) -> None:
@@ -360,6 +382,33 @@ def graph_ms(fn, reps):
     return time_ms(graph.replay, 1) / reps
 
 
+def kernels_per_call(fn):
+    """The kernels one call of ``fn`` launches: the kernel nodes of a CUDA
+    graph that captured the call, read back through the driver API
+    (``cuGraphGetNodes``; copies and memsets are other node types)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    assert kernels > 0, "the captured call launched no kernel"
+    return kernels
+
+
 def measure(kernel, shape, n, moved, fn, plain, reps, plain_reps,
             library=None, plain_graph=True, ops=None, rate=F32_OPS_PER_S):
     """Timings of one kernel and its plain version on the same inputs:
@@ -367,10 +416,12 @@ def measure(kernel, shape, n, moved, fn, plain, reps, plain_reps,
     included), ``device_ms``/``plain_device_ms`` from graph replay (None
     where the plain version syncs with the host and so cannot be
     captured), and ``library_ms`` for one PyTorch call of the same
-    function, where there is one. ``ops`` at ``rate`` replaces the
+    function, where there is one; ``kernels_per_call``, the kernels one
+    call launches. ``ops`` at ``rate`` replaces the
     per-instance count ``OPS[kernel] * n``."""
     b_ms, b_by = bound(kernel, n, moved, ops, rate)
-    return {"ms": time_ms(fn, reps), "plain_ms": time_ms(plain, plain_reps),
+    return {"kernels_per_call": kernels_per_call(fn),
+            "ms": time_ms(fn, reps), "plain_ms": time_ms(plain, plain_reps),
             "device_ms": graph_ms(fn, reps),
             "plain_device_ms": (graph_ms(plain, plain_reps) if plain_graph
                                 else None),
@@ -394,6 +445,7 @@ def bound(kernel, n, moved, ops=None, rate=F32_OPS_PER_S):
 # -------------------------------------------------------------- LM slice
 HYMBA = dict(B=4, P=16 + 128, gen=32)       # run (a): prompt 16 + 128 meta
 LONG = dict(B=1, P=4096 + 128, gen=16)      # run (b): past the window 2048
+FALCON = dict(B=4, P=16)                    # falcon-mamba-7b's serve run
 
 
 def scan_inputs(B, S, Di, N, gen, h0_scale=0.0):
@@ -454,18 +506,26 @@ def check_lm_kernels(errs, gen):
     def note(name, err):
         errs[name] = (None, max(errs[name][1], err))
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for B, S, Di, N, h0 in ((HYMBA["B"], HYMBA["P"], 3200, 16, 0.0),
                             (LONG["B"], LONG["P"], 3200, 16, 0.0),
-                            (3, 37, 100, 5, 0.0), (2, 300, 256, 16, 1.0)):
+                            (FALCON["B"], FALCON["P"], 8192, 16, 0.0),
+                            (3, 37, 100, 5, 0.0), (2, 300, 256, 16, 1.0),
+                            # chunked: ragged chunks, N 1 and 5, h0
+                            (1, 1000, 40, 1, 1.0), (2, 700, 70, 5, 1.0),
+                            (3, 0, 64, 16, 1.0)):
         args = scan_inputs(B, S, Di, N, gen, h0)
         got = scan_ops.selective_scan_cuda(*args)
         want = scan_ops.selective_scan_ref(*args)
         torch.cuda.synchronize()
-        err = max(max_err(g, w, rel=True) for g, w in zip(got, want))
+        pairs = [(g, w) for g, w in zip(got, want) if w.numel()]
+        err = max(max_err(g, w, rel=True) for g, w in pairs)
         assert err <= SCAN_TOL, f"selective_scan B={B} S={S}: {err}"
-        note("selective_scan", max(max_err(g, w) for g, w in zip(got, want)))
-        log(f"check selective_scan B={B} S={S} Di={Di} N={N} h0*{h0}: "
-            f"max rel err {err:.3g}")
+        note("selective_scan", max(max_err(g, w) for g, w in pairs))
+        chunk = scan_ops.plan_chunk(B, S, Di, sms)
+        log(f"check selective_scan B={B} S={S} Di={Di} N={N} h0*{h0} "
+            f"({scan_ops.n_chunks(S, chunk)} chunks of {chunk}): max rel "
+            f"err {err:.3g}")
     for B, S, K, G, hd, causal, window, dtypes in (
             (HYMBA["B"], HYMBA["P"], 5, 5, 64, True, 2048,
              (torch.bfloat16, torch.float32)),
@@ -733,12 +793,11 @@ def lm_cuda_vs_ref(run_a):
 
 def time_lm_kernels(timings, gen):
     """Phase 6 for the LM kernels, at run (a)'s shapes ("main") and the long
-    request's: call and device ms, plain ms, the bound, and one
-    scaled_dot_product_attention call with the same mask as the library
-    yardstick for the attention kernels."""
+    request's (the scan also at falcon-mamba-7b's): call and device ms,
+    plain ms, the bound, and one scaled_dot_product_attention call with the
+    same mask as the library yardstick for the attention kernels."""
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.selective_scan import ops as scan_ops
     sdpa = torch.nn.functional.scaled_dot_product_attention
     K, G, hd, W = 5, 5, 64, 2048
     for label, shp in (("main", HYMBA), ("long", LONG)):
@@ -784,21 +843,146 @@ def time_lm_kernels(timings, gen):
                                  enable_gqa=True),
             ops=4 * hd * n_valid * B * K * G, rate=BF16_OPS_PER_S)
 
-        Di, N = 3200, 16
-        args = scan_inputs(B, S, Di, N, gen)
-        y, h = scan_ops.selective_scan_cuda(*args)
-        timings[label, "selective_scan"] = measure(
-            "selective_scan", f"B={B} S={S} Di={Di} N={N}", 0,
-            nbytes(*args, y, h),
-            lambda: scan_ops.selective_scan_cuda(*args),
-            lambda: scan_ops.selective_scan_ref(*args),
-            20 if long else 100, 1 if long else 3, plain_graph=not long,
-            # per (b, t, d, n): dt * A, exp, abar * h, dx * B, +, h * C, +
-            ops=7 * B * S * Di * N)
+        time_scan(timings, label, B, S, 3200, gen)
+    time_scan(timings, "falcon", FALCON["B"], FALCON["P"], 8192, gen)
+
+
+def time_scan(timings, label, B, S, Di, gen):
+    """The scan's timings at one shape, and a log line with its exp floor
+    beside its bound (both computed, not measured): one MUFU.EX2 per (b, t,
+    d, n) at ``EX2_PER_S``."""
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    N = 16
+    args = scan_inputs(B, S, Di, N, gen)
+    y, h = scan_ops.selective_scan_cuda(*args)
+    long = S > 1000
+    timings[label, "selective_scan"] = t = measure(
+        "selective_scan", f"B={B} S={S} Di={Di} N={N}", 0,
+        nbytes(*args, y, h),
+        lambda: scan_ops.selective_scan_cuda(*args),
+        lambda: scan_ops.selective_scan_ref(*args),
+        100 if long else 200, 1 if long else 3, plain_graph=not long,
+        # per (b, t, d, n): dt * A, exp, abar * h, dx * B, +, h * C, +
+        ops=7 * B * S * Di * N)
+    log(f"selective_scan {label} B={B} S={S} Di={Di}: bound "
+        f"{t['bound_ms']:.4g} ms, exp floor "
+        f"{B * S * Di * N / EX2_PER_S * 1e3:.4g} ms (computed)")
+
+
+def time_kernels():
+    """Phase 6: every kernel's timings at the main path's shapes (10
+    samplers of 16 envs, ``main``), at the vector path's (``vector``), the
+    tree update at an add's (``add``) and the LM kernels' further shapes,
+    on inputs made from their own seed, so that a run of the whole script
+    and one of ``--timing-only`` time the same data."""
+    from repro_torch import kernels
+    from repro_torch.kernels.env_step import ref as env_ref
+    from repro_torch.kernels.gae import ops as gae_ops
+    from repro_torch.kernels.replay_ring import ops as ring_ops
+    from repro_torch.kernels.sum_tree import ops as tree_ops
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    horizon, (n, per, h), n_leaves = 50, MAIN_SAMPLERS, len(CHEETAH_LEAVES)
+    timings = {}
+    for label, B, T, gB in (("main", per, h, n * per),
+                            ("vector", 4096, 128, 4096)):
+        for name in ("pendulum", "cartpole", "cheetah"):
+            state, a, rs, ro, p = env_inputs(name, B, horizon, seed=7)
+            params = dict(max_episode_steps=horizon, reward_scale=1.0, **p)
+            wrapper = kernels.KERNELS[f"{name}_step"]
+            out = wrapper(state, a, rs, ro, **params)
+            # the kernel reads a row's reset candidates only where its
+            # episode ends, so only those rows' candidates count
+            resets = int(out[3].sum())
+            timings[label, f"{name}_step"] = measure(
+                f"{name}_step", f"B={B}", B,
+                nbytes(*state, a, *leaves(out))
+                + nbytes(*rs, ro) * resets // B,
+                lambda: wrapper(state, a, rs, ro, **params),
+                lambda: env_ref.STEP_BATCH_REF[name](state, a, rs, ro,
+                                                     **params), 200, 50)
+        r, v, d, lv = gae_inputs(T, gB, seed=3)
+        adv, ret = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
+        timings[label, "gae"] = measure(
+            "gae", f"T={T} B={gB}", T * gB, nbytes(r, v, d, lv, adv, ret),
+            lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95),
+            lambda: gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95), 200, 5)
+        ret = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+        timings[label, "discounted_returns"] = measure(
+            "discounted_returns", f"T={T} B={gB}", T * gB,
+            nbytes(r, d, lv, ret),
+            lambda: gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99),
+            lambda: gae_ops.discounted_returns_ref(r, d, lv, 0.99), 200, 5)
+    # the replay path at the SAC cheetah run's shapes: 20,000 transitions
+    # of 144 B inserted into 2^20 slots, 256 drawn from 60,000 filled ones
+    n_rows, B = n * per * h, 256
+    storage = ring_leaves(CAP, gen)
+    batch = ring_leaves(n_rows, gen)
+    start = CAP - 7000
+    pos = (torch.arange(n_rows, device="cuda") + start) % CAP
+    row_bytes = nbytes(*(v[:1] for v in storage.values()))
+    timings["main", "ring_insert"] = measure(
+        "ring_insert", f"N={n_rows} cap={CAP} leaves={n_leaves}", 0,
+        2 * n_rows * row_bytes,
+        lambda: ring_ops.ring_insert(storage, batch, start, impl="cuda"),
+        lambda: ring_ops.ring_insert_ref(storage, batch, start), 50, 20,
+        library=lambda: [storage[k].index_copy_(0, pos, batch[k])
+                         for k in storage])
+    idx = torch.randint(0, 3 * n_rows, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx64 = idx.to(torch.int64)
+    timings["main", "ring_gather"] = measure(
+        "ring_gather", f"B={B} cap={CAP} leaves={n_leaves}", 0,
+        # each distinct row read once, each sampled row written once
+        (int(torch.unique(idx).numel()) + B) * row_bytes + nbytes(idx),
+        lambda: ring_ops.ring_gather(storage, idx, impl="cuda"),
+        lambda: ring_ops.ring_gather_ref(storage, idx), 200, 50,
+        library=lambda: [torch.index_select(v, 0, idx64)
+                         for v in storage.values()])
+    del storage, batch
+    tree = random_tree(CAP, 3 * n_rows, gen)
+    masses = stratified_masses(tree, B, gen)
+    found = tree_ops.sumtree_find_cuda(tree, masses)
+    nodes = tree_path_nodes(found, CAP)
+    timings["main", "sumtree_find"] = measure(
+        "sumtree_find", f"B={B} cap={CAP}", B * (CAP.bit_length() - 1),
+        4 * sum(nodes) + nbytes(masses, found),
+        lambda: tree_ops.sumtree_find_cuda(tree, masses),
+        lambda: tree_ops.sumtree_find_batch_ref(tree, masses), 200, 50)
+    for label, upd_idx in (
+            ("main", found),
+            ("add", ((torch.arange(n_rows, device="cuda") + start) % CAP)
+             .to(torch.int32))):
+        vals = torch.rand(upd_idx.shape[0], generator=gen, device="cuda")
+        nodes = tree_path_nodes(upd_idx, CAP)
+        # the plain version picks the winners of duplicate indices with a
+        # boolean mask, which syncs with the host: no graph capture
+        timings[label, "sumtree_update"] = measure(
+            "sumtree_update", f"B={upd_idx.shape[0]} cap={CAP}", sum(nodes),
+            nbytes(upd_idx, vals) + tree_update_bytes(upd_idx, CAP),
+            lambda: tree_ops.sumtree_update_cuda(tree, upd_idx, vals),
+            lambda: tree_ops.sumtree_update_ref(tree, upd_idx, vals), 50, 10,
+            plain_graph=False)
+    time_lm_kernels(timings, gen)
+    return timings
+
+
+def log_timings(timings, labels):
+    """One JSON line per shape label: the kernels timed there."""
+    for label, key in labels:
+        log(json.dumps({key: [{"name": name, **t}
+                              for (at, name), t in timings.items()
+                              if at == label]}))
 
 
 # ------------------------------------------------------------------ main
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--timing-only", action="store_true",
+        help="build the kernels and run only phase 6, logging every timing "
+             "line (the main shapes as kernels_at_main_shapes) with no "
+             "checks and no kernels line: for timing two checkouts in turn")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
@@ -833,6 +1017,11 @@ def main() -> int:
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+    if args.timing_only:
+        log_timings(time_kernels(),
+                    (("main", "kernels_at_main_shapes"),) + TIMING_LINES)
+        print_ok()
+        return 0
 
     # 3. kernels against their plain versions
     errs = {k: (0, 0.0) for k in kernels.KERNELS}
@@ -986,7 +1175,7 @@ def main() -> int:
         """Launch counts: ``nonzero`` as given, every other kernel 0."""
         return {**{k: 0 for k in kernels.KERNELS}, **nonzero}
 
-    n, per, h = 10, 16, 125
+    n, per, h = MAIN_SAMPLERS
     logs = counted("cheetah N=10", lambda: cli(
         ["--mode", "rl", "--env", "cheetah", "--algo", "ppo",
          "--num-samplers", str(n), "--global-batch", str(n * per),
@@ -1159,89 +1348,7 @@ def main() -> int:
     lm_report = lm_cuda_vs_ref(run_a)
     del run_a
 
-    # 6. timings at the main path's shapes (10 samplers of 16 envs), and at
-    # the vector path's
-    timings = {}
-    for label, B, T, gB in (("main", per, h, n * per),
-                            ("vector", 4096, 128, 4096)):
-        for name in ("pendulum", "cartpole", "cheetah"):
-            state, a, rs, ro, p = env_inputs(name, B, horizon, seed=7)
-            params = dict(max_episode_steps=horizon, reward_scale=1.0, **p)
-            wrapper = kernels.KERNELS[f"{name}_step"]
-            out = wrapper(state, a, rs, ro, **params)
-            # the kernel reads a row's reset candidates only where its
-            # episode ends, so only those rows' candidates count
-            resets = int(out[3].sum())
-            timings[label, f"{name}_step"] = measure(
-                f"{name}_step", f"B={B}", B,
-                nbytes(*state, a, *leaves(out))
-                + nbytes(*rs, ro) * resets // B,
-                lambda: wrapper(state, a, rs, ro, **params),
-                lambda: env_ref.STEP_BATCH_REF[name](state, a, rs, ro,
-                                                     **params), 200, 50)
-        r, v, d, lv = gae_inputs(T, gB, seed=3)
-        adv, ret = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
-        timings[label, "gae"] = measure(
-            "gae", f"T={T} B={gB}", T * gB, nbytes(r, v, d, lv, adv, ret),
-            lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95),
-            lambda: gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95), 200, 5)
-        ret = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
-        timings[label, "discounted_returns"] = measure(
-            "discounted_returns", f"T={T} B={gB}", T * gB,
-            nbytes(r, d, lv, ret),
-            lambda: gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99),
-            lambda: gae_ops.discounted_returns_ref(r, d, lv, 0.99), 200, 5)
-    # the replay path at the SAC cheetah run's shapes: 20,000 transitions
-    # of 144 B inserted into 2^20 slots, 256 drawn from 60,000 filled ones
-    n_rows, B = n * per * h, 256
-    storage = ring_leaves(CAP, gen)
-    batch = ring_leaves(n_rows, gen)
-    start = CAP - 7000
-    pos = (torch.arange(n_rows, device="cuda") + start) % CAP
-    row_bytes = nbytes(*(v[:1] for v in storage.values()))
-    timings["main", "ring_insert"] = measure(
-        "ring_insert", f"N={n_rows} cap={CAP} leaves={n_leaves}", 0,
-        2 * n_rows * row_bytes,
-        lambda: ring_ops.ring_insert(storage, batch, start, impl="cuda"),
-        lambda: ring_ops.ring_insert_ref(storage, batch, start), 50, 20,
-        library=lambda: [storage[k].index_copy_(0, pos, batch[k])
-                         for k in storage])
-    idx = torch.randint(0, 3 * n_rows, (B,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    idx64 = idx.to(torch.int64)
-    timings["main", "ring_gather"] = measure(
-        "ring_gather", f"B={B} cap={CAP} leaves={n_leaves}", 0,
-        # each distinct row read once, each sampled row written once
-        (int(torch.unique(idx).numel()) + B) * row_bytes + nbytes(idx),
-        lambda: ring_ops.ring_gather(storage, idx, impl="cuda"),
-        lambda: ring_ops.ring_gather_ref(storage, idx), 200, 50,
-        library=lambda: [torch.index_select(v, 0, idx64)
-                         for v in storage.values()])
-    del storage, batch
-    tree = random_tree(CAP, 3 * n_rows, gen)
-    masses = stratified_masses(tree, B, gen)
-    found = tree_ops.sumtree_find_cuda(tree, masses)
-    nodes = tree_path_nodes(found, CAP)
-    timings["main", "sumtree_find"] = measure(
-        "sumtree_find", f"B={B} cap={CAP}", B * (CAP.bit_length() - 1),
-        4 * sum(nodes) + nbytes(masses, found),
-        lambda: tree_ops.sumtree_find_cuda(tree, masses),
-        lambda: tree_ops.sumtree_find_batch_ref(tree, masses), 200, 50)
-    for label, upd_idx in (
-            ("main", found),
-            ("add", ((torch.arange(n_rows, device="cuda") + start) % CAP)
-             .to(torch.int32))):
-        vals = torch.rand(upd_idx.shape[0], generator=gen, device="cuda")
-        nodes = tree_path_nodes(upd_idx, CAP)
-        # the plain version picks the winners of duplicate indices with a
-        # boolean mask, which syncs with the host: no graph capture
-        timings[label, "sumtree_update"] = measure(
-            "sumtree_update", f"B={upd_idx.shape[0]} cap={CAP}", sum(nodes),
-            nbytes(upd_idx, vals) + tree_update_bytes(upd_idx, CAP),
-            lambda: tree_ops.sumtree_update_cuda(tree, upd_idx, vals),
-            lambda: tree_ops.sumtree_update_ref(tree, upd_idx, vals), 50, 10,
-            plain_graph=False)
-    time_lm_kernels(timings, gen)
+    timings = time_kernels()
     entries = []
     for name in kernels.KERNELS:
         entries.append({
@@ -1250,22 +1357,18 @@ def main() -> int:
             "launches": sum(c[name] for c in runs.values()),
             "max_abs_err": errs[name][1], "max_ulp": errs[name][0],
             **timings["main", name]})
-    log(json.dumps({"kernels_at_vector_shapes": [
-        {"name": name, **t} for (label, name), t in timings.items()
-        if label == "vector"]}))
-    log(json.dumps({"kernels_at_long_request": [
-        {"name": name, **t} for (label, name), t in timings.items()
-        if label == "long"]}))
+    log_timings(timings, TIMING_LINES)
     log(json.dumps({"lm_cuda_vs_ref": lm_report}))
-    log(json.dumps({"kernels_at_add_shapes": [
-        {"name": name, **t} for (label, name), t in timings.items()
-        if label == "add"]}))
     log(json.dumps({"launches_by_run": runs}))
     print(json.dumps({"kernels": entries}), flush=True)
+    print_ok()
+    return 0
+
+
+def print_ok() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

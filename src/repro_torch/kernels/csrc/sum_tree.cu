@@ -15,31 +15,54 @@
 // in L2. Bound on an H100: HBM bytes of the nodes the batch's paths touch,
 // but its time is latency: log2cap dependent loads per thread.
 //
-// sumtree_update: one block of 1024 threads in phases, __syncthreads()
-// between them:
-//   1. atomicMax(winner[idx[j]], j): the last position of each leaf index
-//      (winner is an int32 scratch of cap entries, -1 between calls);
-//   2. the winner alone writes its leaf, so duplicates resolve
-//      last-write-wins, as the reference's in-order scatter does;
-//   3. winner[idx[j]] = -1, the scratch reset for the next call;
-//   4. level by level, every touched parent = left + right from the
-//      post-write children. Duplicate parents store the same sum.
-// This is the reference's touched-path recomputation, so it is exact. An
-// index in [-cap, 0) counts from the end and one outside [-cap, cap) is
-// dropped, as jnp's scatter does. Bound on an H100: HBM bytes of idx and
-// values read, each distinct leaf written once, and for each touched parent
-// one 4-byte write plus a 4-byte read of each child that is not itself on a
-// touched path (a touched child's value was just written by this call). One
-// block keeps the phase barriers cheap, and its threads stride over the
-// indices (about 20,000 consecutive ones when a batch of transitions is
-// added, 256 when the learner's priorities come back).
+// sumtree_update: last write wins at the leaves, then every touched parent
+// recomputed as left + right from the children after the write. One host
+// call:
+// - up to 256 indices (the learner's priorities): one launch of
+//   walk_kernel, one block, a thread per index. atomicMax(winner[i], j)
+//   picks the last position of each leaf and that thread writes it; then
+//   every thread recomputes its path's parent, a level at a time (a
+//   __syncthreads() and a global round trip each; a parent two paths share
+//   is written twice with the same sum). This is the one-block walk the
+//   port had, one index per thread: on an H100 it beat the alternatives
+//   measured for this batch (the subtree kernel below; the top 11 levels in
+//   shared memory; the paths' nodes in a shared-memory hash table);
+// - more (an add of 20,000): two launches. mark_kernel, a thread per
+//   index, leaves the atomicMax winners and a flag per touched subtree of
+//   2^11 leaves. update_kernel has a block of 256 per such subtree (512 at
+//   2^20 leaves). A block whose flag is not set is done at once. Otherwise
+//   it writes its winning leaves and loads the subtree's nodes into shared
+//   memory (every load issued before any is used: one round trip),
+//   recomputes level by level (a __syncthreads() each) only the parents
+//   with a touched child, writes exactly those, and flags its root at the
+//   root level of every group of levels above (groups of 11 levels, the
+//   top one shorter; sumtree_update_scratch gives the scratch this layout
+//   needs, and the wrapper allocates that). The block that counts itself
+//   done last does the upper groups the same way, a subtree at a time (one
+//   at 2^20 leaves). No block waits on another.
+// Each winner, flag and the done counter go back to -1, so the scratch is
+// all -1 between calls and both paths can be replayed from a CUDA graph. A
+// parent's children are final before it is computed (level barriers;
+// across launches, stream order; across groups, the done counter), so every
+// touched parent is computed from the same operands as the plain version's
+// in-order recomputation, and the result is the plain version's bit for
+// bit. An index in [-cap, 0) counts from the end and one outside [-cap,
+// cap) is dropped, as jnp's scatter does. Bound on an H100: HBM bytes of
+// idx and values read, each distinct leaf written once, and for each
+// touched parent one 4-byte write plus a 4-byte read of each child that is
+// not itself on a touched path. Its time is latency: the launches and the
+// chains of dependent round trips (20 levels in the walk).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kFindThreads = 256;
-constexpr int kUpdateThreads = 1024;
+constexpr int kWalkThreads = 256;      // walk_kernel: up to this batch
+constexpr int kUpdateThreads = 256;
+constexpr int kGroupLevels = 11;        // levels per group (the top less)
+constexpr int kGroupNodes = 1 << kGroupLevels;
+constexpr int kNodesPerThread = kGroupNodes / kUpdateThreads;
 
 __device__ __forceinline__ long long level_offset(long long cap, int k) {
   return 2 * cap - 2 * (cap >> k);
@@ -72,36 +95,158 @@ __global__ void find_kernel(const float* __restrict__ flat,
   out[j] = (int32_t)idx;
 }
 
-__global__ void update_kernel(float* flat, int32_t* winner,
-                              const int32_t* __restrict__ idx,
-                              const float* __restrict__ values, long long cap,
-                              int log2cap, int batch) {
-  const unsigned ucap = (unsigned)cap;
-  for (int j = threadIdx.x; j < batch; j += blockDim.x) {
-    int i = leaf_index(idx[j], ucap);
-    if (i >= 0) atomicMax(&winner[i], j);
-  }
+// One block, a thread per index (batch <= kWalkThreads).
+__global__ void __launch_bounds__(kWalkThreads) walk_kernel(
+    float* flat, int32_t* winner, const int32_t* __restrict__ idx,
+    const float* __restrict__ values, long long cap, int log2cap,
+    int batch) {
+  const int j = threadIdx.x;
+  const int i = j < batch ? leaf_index(idx[j], (unsigned)cap) : -1;
+  if (i >= 0) atomicMax(&winner[i], j);
   __syncthreads();
-  for (int j = threadIdx.x; j < batch; j += blockDim.x) {
-    int i = leaf_index(idx[j], ucap);
-    if (i >= 0 && winner[i] == j) flat[i] = values[j];
-  }
+  if (i >= 0 && __ldcg(&winner[i]) == j) flat[i] = values[j];
   __syncthreads();
-  for (int j = threadIdx.x; j < batch; j += blockDim.x) {
-    int i = leaf_index(idx[j], ucap);
-    if (i >= 0) winner[i] = -1;
-  }
+  if (i >= 0) winner[i] = -1;
   for (int k = 0; k < log2cap; ++k) {
     __syncthreads();
+    if (i < 0) continue;
+    const long long p = i >> (k + 1);
     const float* lo = flat + level_offset(cap, k);
-    float* hi = flat + level_offset(cap, k + 1);
-    for (int j = threadIdx.x; j < batch; j += blockDim.x) {
-      int i = leaf_index(idx[j], ucap);
-      if (i < 0) continue;
-      int p = i >> (k + 1);
-      hi[p] = lo[2 * p] + lo[2 * p + 1];
+    flat[level_offset(cap, k + 1) + p] = __ldcg(&lo[2 * p]) +
+                                         __ldcg(&lo[2 * p + 1]);
+  }
+}
+
+// One thread per index j of a larger batch: winner[i] = the last j with
+// leaf i, and the flag of i's bottom subtree (a flag the thread before j
+// set for the same subtree is skipped).
+__global__ void mark_kernel(int32_t* winner, int32_t* flags,
+                            const int32_t* __restrict__ idx, long long cap,
+                            int lr0, int batch) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= batch) return;
+  const unsigned ucap = (unsigned)cap;
+  const int i = leaf_index(idx[j], ucap);
+  if (i < 0) return;
+  atomicMax(&winner[i], j);
+  const int prev = j > 0 ? leaf_index(idx[j - 1], ucap) : -1;
+  if (prev < 0 || (prev >> lr0) != (i >> lr0)) flags[i >> lr0] = 0;
+}
+
+// The touched parents of subtree s of h levels above level lb (2^h bottom
+// nodes), bottom up in shared memory, by the whole block; writes exactly
+// the touched nodes. Bottom nodes are touched where win[m] >= 0 (the bottom
+// group: values[win[m]] is the leaf's new mass) or, above, where the group
+// below flagged them (the flag is consumed: set back to -1). Each thread
+// issues all its loads before it uses one. They bypass L1 (__ldcg): upper
+// nodes were written by other blocks of this launch.
+__device__ void rebuild(float* flat, const float* __restrict__ values,
+                        const int* win, int32_t* bottom_flags, long long cap,
+                        int lb, int h, long long s, float* val,
+                        unsigned char* hit) {
+  const int M = 1 << h;
+  float* bottom = flat + level_offset(cap, lb) + s * M;
+  float v[kNodesPerThread], up[kNodesPerThread];
+  bool touched[kNodesPerThread];
+#pragma unroll
+  for (int i = 0; i < kNodesPerThread; ++i) {
+    const int m = threadIdx.x + i * kUpdateThreads;
+    touched[i] = false;
+    if (m >= M) continue;
+    if (win != nullptr) {
+      const int w = win[m];
+      touched[i] = w >= 0;
+      v[i] = __ldcg(touched[i] ? values + w : bottom + m);
+    } else {
+      touched[i] = __ldcg(bottom_flags + s * M + m) != -1;
+      v[i] = __ldcg(bottom + m);
     }
   }
+#pragma unroll
+  for (int i = 0; i < kNodesPerThread; ++i) {   // the nodes above, u >= M
+    const int u = M + threadIdx.x + i * kUpdateThreads;
+    if (u >= 2 * M - 1) continue;
+    const int k = h - (31 - __clz(2 * M - u - 1)), cnt = M >> k;
+    up[i] = __ldcg(flat + level_offset(cap, lb + k) + s * cnt + u -
+                   (2 * M - 2 * cnt));
+  }
+#pragma unroll
+  for (int i = 0; i < kNodesPerThread; ++i) {
+    const int m = threadIdx.x + i * kUpdateThreads, u = M + m;
+    if (m < M) {
+      val[m] = v[i];
+      hit[m] = touched[i];
+      if (touched[i] && win != nullptr) bottom[m] = v[i];
+      if (touched[i] && win == nullptr) bottom_flags[s * M + m] = -1;
+    }
+    if (u < 2 * M - 1) val[u] = up[i];
+  }
+  __syncthreads();
+  for (int k = 1; k <= h; ++k) {
+    const int cnt = M >> k, lo = 2 * M - 4 * cnt, hi = 2 * M - 2 * cnt;
+    float* level = flat + level_offset(cap, lb + k) + s * cnt;
+    for (int p = threadIdx.x; p < cnt; p += kUpdateThreads) {
+      const bool t = hit[lo + 2 * p] | hit[lo + 2 * p + 1];
+      hit[hi + p] = t;
+      if (t) level[p] = val[hi + p] = val[lo + 2 * p] + val[lo + 2 * p + 1];
+    }
+    __syncthreads();
+  }
+}
+
+// One block per subtree s of the bottom group, after mark_kernel. flags:
+// one array per group, of cap >> (its root level) entries; done counts the
+// bottom subtrees from -1.
+__global__ void __launch_bounds__(kUpdateThreads) update_kernel(
+    float* flat, int32_t* winner, int32_t* flags, int32_t* done,
+    const float* __restrict__ values, long long cap, int log2cap) {
+  __shared__ float val[2 * kGroupNodes];
+  __shared__ unsigned char hit[2 * kGroupNodes];
+  __shared__ int win[kGroupNodes];
+  __shared__ int last;
+  const int lr0 = min(kGroupLevels, log2cap), M = 1 << lr0;
+  const long long s = blockIdx.x;
+  if (__ldcg(&flags[s]) != -1) {          // the same word for all
+#pragma unroll
+    for (int i = 0; i < kNodesPerThread; ++i) {
+      const int m = threadIdx.x + i * kUpdateThreads;
+      if (m < M) win[m] = __ldcg(&winner[s * M + m]);
+    }
+    __syncthreads();
+    for (int m = threadIdx.x; m < M; m += kUpdateThreads)
+      if (win[m] >= 0) winner[s * M + m] = -1;
+    rebuild(flat, values, win, nullptr, cap, 0, lr0, s, val, hit);
+    if (threadIdx.x == 0) {               // flag s's root in every group
+      long long off = 0;
+      int lr = 0;
+      do {
+        lr = min(lr + kGroupLevels, log2cap);
+        flags[off + (s >> (lr - lr0))] = lr0 == log2cap ? -1 : 0;
+        off += cap >> lr;
+      } while (lr < log2cap);
+    }
+  }
+  if (lr0 == log2cap) return;             // one group: nothing above
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(done, 1) == (int)gridDim.x - 2;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int32_t* below = flags;
+  long long off = cap >> lr0;
+  for (int lb = lr0, lr; lb < log2cap; lb = lr) {
+    lr = min(lb + kGroupLevels, log2cap);
+    int32_t* roots = flags + off;
+    for (long long t = 0; t < cap >> lr; ++t) {
+      if (__ldcg(&roots[t]) == -1) continue;   // the same word for all
+      rebuild(flat, values, nullptr, below, cap, lb, lr - lb, t, val, hit);
+      if (lr == log2cap && threadIdx.x == 0) roots[t] = -1;
+    }
+    below = roots;
+    off += cap >> lr;
+  }
+  if (threadIdx.x == 0) *done = -1;
 }
 
 }  // namespace
@@ -117,14 +262,48 @@ extern "C" int sumtree_find(const void* flat, const void* masses, void* out,
   return (int)cudaGetLastError();
 }
 
+// int32 flags of the groups' root levels: cap >> (root level) each.
+static long long group_flags(long long cap, int log2cap) {
+  long long n = 0;
+  int lr = 0;
+  do {
+    lr = lr + kGroupLevels < log2cap ? lr + kGroupLevels : log2cap;
+    n += cap >> lr;
+  } while (lr < log2cap);
+  return n;
+}
+
+// int32 entries of sumtree_update's scratch for cap leaves: cap winners,
+// the groups' flags, the done counter.
+extern "C" long long sumtree_update_scratch(long long cap) {
+  int log2cap = 0;
+  while ((2LL << log2cap) <= cap) ++log2cap;
+  return cap + group_flags(cap, log2cap) + 1;
+}
+
 // In place on flat; idx (batch,) int32 (one in [-cap, 0) counts from the
-// end, one outside [-cap, cap) is dropped), values (batch,) f32, winner
-// (cap,) int32 all -1 (left so on return); cap <= 2^31.
-extern "C" int sumtree_update(void* flat, void* winner, const void* idx,
+// end, one outside [-cap, cap) is dropped), values (batch,) f32, batch >= 1;
+// scratch int32 of sumtree_update_scratch(cap) entries, all -1 (left so on
+// return); cap <= 2^31. One launch up to 256 indices, two above.
+extern "C" int sumtree_update(void* flat, void* scratch, const void* idx,
                               const void* values, long long cap, int log2cap,
                               int batch, void* stream) {
-  update_kernel<<<1, kUpdateThreads, 0, (cudaStream_t)stream>>>(
-      (float*)flat, (int32_t*)winner, (const int32_t*)idx,
-      (const float*)values, cap, log2cap, batch);
+  if (batch < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  int32_t* winner = (int32_t*)scratch;
+  if (batch <= kWalkThreads) {
+    walk_kernel<<<1, kWalkThreads, 0, st>>>(
+        (float*)flat, winner, (const int32_t*)idx, (const float*)values, cap,
+        log2cap, batch);
+    return (int)cudaGetLastError();
+  }
+  int32_t* flags = winner + cap;
+  const int lr0 = kGroupLevels < log2cap ? kGroupLevels : log2cap;
+  mark_kernel<<<(batch + kUpdateThreads - 1) / kUpdateThreads,
+                kUpdateThreads, 0, st>>>(winner, flags, (const int32_t*)idx,
+                                         cap, lr0, batch);
+  update_kernel<<<(unsigned)(cap >> lr0), kUpdateThreads, 0, st>>>(
+      (float*)flat, winner, flags, flags + group_flags(cap, log2cap),
+      (const float*)values, cap, log2cap);
   return (int)cudaGetLastError();
 }

@@ -11,8 +11,11 @@ the kernels of ``csrc/sum_tree.cu`` (unless the mode is ``ref``).
 The kernels replace ``sumtree_find_pallas`` and ``sumtree_update_pallas``
 (``repro/kernels/sum_tree/sum_tree_pallas.py``). Both are exact. The bound
 is HBM bytes of the nodes touched; the descent's time is the latency of
-``log2(cap)`` dependent loads. ``sumtree_find_cuda.launches`` and
-``sumtree_update_cuda.launches`` count their launches.
+``log2(cap)`` dependent loads. An update is one host call (one launch up to
+256 indices, two above); its scratch, ``SumTree.winner`` on a CUDA tree,
+has the size the library gives (``update_scratch_size``).
+``sumtree_find_cuda.launches`` and ``sumtree_update_cuda.launches`` count
+calls.
 """
 from __future__ import annotations
 
@@ -45,7 +48,16 @@ def _lib() -> ctypes.CDLL:
     lib.sumtree_find.restype = _I
     lib.sumtree_update.argtypes = [_P, _P, _P, _P, _L, _I, _I, _P]
     lib.sumtree_update.restype = _I
+    lib.sumtree_update_scratch.argtypes = [_L]
+    lib.sumtree_update_scratch.restype = _L
     return lib
+
+
+@functools.cache
+def update_scratch_size(capacity: int) -> int:
+    """int32 entries of the update kernels' scratch for ``capacity``
+    leaves, as ``csrc/sum_tree.cu`` lays it out."""
+    return _lib().sumtree_update_scratch(capacity)
 
 
 def _check(kernel: str, named, device) -> None:
@@ -99,15 +111,14 @@ def sumtree_update_cuda(tree: SumTree, idx: torch.Tensor,
     B = idx.shape[0] if idx.dim() == 1 else -1
     _check("sumtree_update", [
         ("flat", tree.flat, (2 * cap - 1,), torch.float32),
-        ("winner", tree.winner, (cap,), torch.int32),
+        ("winner", tree.winner, (update_scratch_size(cap),), torch.int32),
         ("idx", idx, (B,), torch.int32),
         ("values", values, (B,), torch.float32)], dev)
     if B == 0:
         return tree
     rc = _lib().sumtree_update(tree.flat.data_ptr(), tree.winner.data_ptr(),
                                idx.data_ptr(), values.data_ptr(), cap,
-                               cap.bit_length() - 1, B,
-                               stream.current(dev))
+                               cap.bit_length() - 1, B, stream.current(dev))
     _raise_on(rc, "sumtree_update")
     sumtree_update_cuda.launches += 1
     return tree

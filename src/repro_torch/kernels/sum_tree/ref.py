@@ -6,8 +6,9 @@ and the TPU kernels take the levels concatenated into one flat array. Here
 the flat array *is* the state: ``SumTree.flat`` is ``(2 * cap - 1,)``
 float32, leaves first, and ``SumTree.levels`` are views into it, so neither
 a kernel call nor a plain one concatenates anything. The tree also owns the
-CUDA update kernel's scratch, ``winner``: one int32 per leaf, kept at -1
-between calls.
+CUDA update kernels' scratch, ``winner``, kept at -1 between calls: on a
+CUDA tree of the size ``ops.update_scratch_size`` gives (one int32 per leaf,
+then the kernels' flags and counter), on a CPU tree one per leaf, unused.
 
 ``sumtree_update_ref`` writes into the tree in place, as the CUDA kernel
 does. ``sumtree_update_masked`` (the sharded replay's form) is not ported.
@@ -55,19 +56,23 @@ class SumTree(NamedTuple):
     ``levels[-1]`` the total ``(1,)``; all views of ``flat``."""
 
     flat: torch.Tensor      # (2 * cap - 1,) float32, leaves first
-    winner: torch.Tensor    # (cap,) int32 at -1: the update kernel's scratch
+    winner: torch.Tensor    # int32 at -1: the update kernels' scratch
 
     @classmethod
     def of(cls, flat: torch.Tensor) -> "SumTree":
         """Wrap a flat tree (leaves-first levels concatenated)."""
         cap = (flat.shape[0] + 1) // 2
         level_sizes(cap)
-        return cls(flat, torch.full((cap,), -1, dtype=torch.int32,
+        size = cap
+        if flat.is_cuda:            # the layout of csrc/sum_tree.cu
+            from repro_torch.kernels.sum_tree import ops
+            size = ops.update_scratch_size(cap)
+        return cls(flat, torch.full((size,), -1, dtype=torch.int32,
                                     device=flat.device))
 
     @property
     def capacity(self) -> int:
-        return self.winner.shape[0]
+        return (self.flat.shape[0] + 1) // 2
 
     @property
     def levels(self) -> Tuple[torch.Tensor, ...]:

@@ -430,6 +430,126 @@ def test_selective_scan_kernel_matches_plain(cuda, B, S, Di, N, h0_scale):
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Di,N,h0_scale,chunked", [
+    (1, 4224, 3200, 16, 0.0, True),    # hymba's long request
+    (4, 16, 8192, 16, 0.0, False),     # falcon-mamba-7b's prefill
+    (1, scan_ops.CHUNK, 64, 16, 1.0, False),       # one chunk
+    (1, scan_ops.CHUNK + 1, 64, 16, 1.0, True),    # two, one step over
+    (2, 3 * scan_ops.CHUNK - 1, 64, 16, 1.0, True),
+    (1, 1000, 40, 1, 1.0, True),
+    (2, 700, 70, 5, 1.0, True),
+    (3, 0, 64, 16, 1.0, False),        # no step: h_final is h0
+])
+def test_selective_scan_kernel_chunks_and_edges(cuda, B, S, Di, N, h0_scale,
+                                                chunked):
+    """The one-walk and chunked paths against the plain version: at the
+    serve runs' long shapes, at S just below and above one chunk, at
+    N 1, 5 and 16 with a nonzero h0, and with no step at all."""
+    chunk = scan_ops.plan_chunk(B, S, Di, _sms(cuda))
+    assert (scan_ops.n_chunks(S, chunk) > 1) == chunked, chunk
+    rng = np.random.default_rng(B * S + Di + N)
+    args = _scan_inputs(rng, B, S, Di, N, cuda, h0_scale)
+    before = scan_ops.selective_scan_cuda.launches
+    y, h = scan_ops.selective_scan(*args, impl="cuda")
+    yr, hr = scan_ops.selective_scan_ref(*args)
+    torch.cuda.synchronize()
+    assert scan_ops.selective_scan_cuda.launches == before + 1
+    for got, want in ((y, yr), (h, hr)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    if S == 0:
+        assert torch.equal(h, args[-1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,B", [
+    (1 << 20, 20000),        # the add: marked first, two level groups
+    (1 << 20, 1000), (1024, 5000), (2048, 1000)])   # marked; one group
+def test_sumtree_update_kernel_duplicates_across_blocks(cuda, cap, B):
+    """Consecutive indices that wrap past the end, with duplicates
+    thousands of positions apart (in different blocks of the marking launch
+    and, at 2^20, in different subtrees): the last write wins and the
+    parents match the plain version bit for bit."""
+    tree, rng = _tree(cap, 77, cuda)
+    idx = (np.arange(B) + cap - 5000) % cap          # wraps past the end
+    far = rng.choice(B, 600, replace=False)
+    idx[far[:300]] = idx[far[300:]]                  # twins far apart
+    idx[B - 1] = idx[0]                              # first and last block
+    idx[-256:-200] = -7                              # counts from the end
+    idx[5:9] = [cap, -cap - 1, 1 << 30, -(1 << 30)]  # dropped
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random(B).astype(np.float32)).to(cuda)
+    want = tree_ref.SumTree.of(tree.flat.clone())
+    tree_ops.sumtree_update_ref(want, idx, vals)
+    tree_ops.sumtree_update(tree, idx, vals, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(tree.flat, want.flat)
+    assert tree.winner.shape == (tree_ops.update_scratch_size(cap),)
+    assert bool((tree.winner == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cap,B", [
+    (1 << 23, 256),          # the one-block walk, 23 levels
+    (1 << 20, 257)])         # one more: marked, then a block per subtree
+def test_sumtree_update_kernel_at_the_one_block_limits(cuda, cap, B):
+    tree, rng = _tree(cap, B, cuda)
+    idx = rng.integers(-cap, cap, B)
+    idx[-B // 4:] = idx[1]                       # duplicates: last one wins
+    idx = torch.from_numpy(idx.astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random(B).astype(np.float32)).to(cuda)
+    want = tree_ref.SumTree.of(tree.flat.clone())
+    tree_ops.sumtree_update_ref(want, idx, vals)
+    tree_ops.sumtree_update(tree, idx, vals, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(tree.flat, want.flat)
+    assert bool((tree.winner == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [256, 20000])
+def test_sumtree_update_replays_from_a_cuda_graph(cuda, B):
+    """One update captured in a CUDA graph, replayed on fresh indices and
+    values copied into the captured inputs, equals the plain version run
+    eagerly on the same tree and inputs, and leaves the whole scratch at -1:
+    at B 256 the one-block walk, at B 20,000 (an add: consecutive indices
+    that wrap past the end, with duplicates) the marking and subtree
+    kernels with their flags and done counter."""
+    cap = 1 << 20
+    tree, rng = _tree(cap, 5, cuda)
+    idx = torch.zeros(B, dtype=torch.int32, device=cuda)
+    vals = torch.zeros(B, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                # build, load, check once
+        tree_ops.sumtree_update(tree, idx, vals, impl="cuda")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tree_ops.sumtree_update(tree, idx, vals, impl="cuda")
+    for r in range(3):
+        if B == 256:
+            fresh = rng.integers(-cap, cap + 9, B)
+        else:
+            fresh = (np.arange(B) + cap - 7000 + 3 * r) % cap
+            fresh[rng.choice(B, 500, replace=False)] = fresh[
+                rng.choice(B, 500)]                  # twins anywhere
+        fresh[-B // 4:] = fresh[0]               # duplicates: last one wins
+        idx.copy_(torch.from_numpy(fresh.astype(np.int32)))
+        vals.copy_(torch.from_numpy(rng.random(B).astype(np.float32)))
+        want = tree_ref.SumTree.of(tree.flat.clone())
+        tree_ops.sumtree_update_ref(want, idx, vals)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(tree.flat, want.flat)
+        assert bool((tree.winner == -1).all())
+
+
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # chip_smoke.py's second attention bound, which scales with the output:
 # each row's max |error| over the RMS of that row of the float32 result on

@@ -34,6 +34,7 @@ from repro_torch.kernels.selective_scan import (
     selective_scan,
     selective_scan_ref,
 )
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models import attention
 
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
@@ -219,3 +220,36 @@ def test_selective_scan_ref_matches_the_models_chunked_scan(S, chunk):
     jargs, targs = _scan_inputs(rng, 2, S, 24, 8, 0.5)
     want = jax_ssm.selective_scan(*jargs, chunk=chunk)
     _scan_close(selective_scan_ref(*targs), want)
+
+
+def test_selective_scan_state_chaining():
+    """The port's plain scan over two halves, with the state carried,
+    equals JAX's scan over the whole (the Pallas kernel in interpret mode,
+    as ``tests/test_kernels.py::test_selective_scan_state_chaining`` runs
+    it)."""
+    rng = np.random.default_rng(128)
+    jargs, targs = _scan_inputs(rng, 1, 128, 32, 8)
+    y_full, h_full = jax_scan_kernel(*jargs, d_block=32, t_chunk=32)
+    dt, A, b, c, x, h = targs
+    ys = []
+    for sl in (slice(0, 64), slice(64, 128)):
+        y, h = selective_scan_ref(dt[:, sl], A, b[:, sl], c[:, sl], x[:, sl],
+                                  h)
+        ys.append(y)
+    _scan_close((torch.cat(ys, 1), h), (y_full, h_full))
+
+
+@pytest.mark.parametrize("B,S,Di,sms,chunks", [
+    (4, 144, 3200, 132, 1),      # hymba's prefill, run (a): one walk
+    (1, 4224, 3200, 132, 33),    # the long request: 100 blocks, chunked
+    (4, 16, 8192, 132, 1),       # falcon-mamba-7b's prefill
+    (1, 0, 64, 132, 1), (1, 1, 64, 132, 1), (1, 128, 64, 132, 1),
+    (1, 129, 64, 132, 2), (2, 383, 64, 132, 3),
+    (16, 5000, 32, 8, 1),        # 2 blocks per SM: one walk
+    (15, 5000, 32, 8, 40),       # fewer: chunks of 128
+    (1, 100000, 32, 132, 782)])
+def test_scan_chunk_plan(B, S, Di, sms, chunks):
+    chunk = scan_ops.plan_chunk(B, S, Di, sms)
+    assert scan_ops.n_chunks(S, chunk) == chunks
+    assert chunk >= 1 and (chunks - 1) * chunk < max(S, 1) <= chunks * chunk
+    assert chunks == 1 or chunk == scan_ops.CHUNK

@@ -121,3 +121,17 @@ def test_scratch_and_cpu_selection():
     assert float(tree.total) == 10.0
     assert kernels.launch_counts()["sumtree_update"] == 0
     assert kernels.launch_counts()["sumtree_find"] == 0
+
+
+
+@pytest.mark.parametrize("cap", [1, 2, 1024, 1 << 20])
+def test_cpu_tree_capacity_and_scratch(cap):
+    """The capacity comes from the flat array; a CPU tree's scratch is one
+    int32 per leaf at -1 (the plain version leaves it so)."""
+    tree = tree_ref.SumTree.of(torch.zeros(2 * cap - 1))
+    assert tree.capacity == cap
+    assert tree.winner.shape == (cap,) and tree.winner.dtype == torch.int32
+    tree_ops.sumtree_update(tree, torch.tensor([0, cap - 1, -1]),
+                            torch.tensor([1.0, 2.0, 4.0]))
+    assert bool((tree.winner == -1).all())
+    assert float(tree.total) == (4.0 if cap == 1 else 5.0)

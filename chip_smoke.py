@@ -17,7 +17,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    returns (T × B = 1 × 1, 125 × 160, 128 × 4096, a ragged 125 × 163, 0 × 5)
    exactly, env float leaves within 4 ulp (or 4 ulp of the leaf's magnitude
    near zero; cart-pole at B = 1, 16, 700 and 4096 with poles falling and a
-   reward scale of 0.5); the replay ring (N > cap, wraparound, cap 1,
+   reward scale of 0.5); GAE and the cheetah step also at their tile edges,
+   bit for bit and one launch a call (GAE at T in 1, 31, 32, 33, 125, 128,
+   129, 1000 × B in 1, 31, 33, 160, 4096, 4097, with dones at no step, every
+   step, t = 0 only, t = T - 1 only and 10 % at random; cheetah at B in 1,
+   16, 31, 33, 4096, 4097 with no, every and a third of the episodes
+   ending); the replay ring (N > cap, wraparound, cap 1,
    float, bool, int, bfloat16 and zero-width rows, odd heads where source
    and destination differ mod 16 and mod 4) and the sum tree (capacities 1, 2, 1024 and
    2^20, zero-mass leaves, updates with duplicate indices) exactly; the LM
@@ -82,10 +87,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
    line ``{"kernels": [...]}``. A replay-ring time covers one call of the
    op over the 5 stored leaves (one launch). The discounted returns lie on
    no path (neither package calls them outside tests and benchmarks); they
-   are timed at the GAE shapes; the tree update at the priority update's
-   B 256 and at an add's B 20,000. The LM kernels are timed in bfloat16 at
-   run (a)'s shapes and at the long request's (the scan, float32, also at
-   falcon-mamba-7b's, with a log line giving a second floor beside its
+   are timed at the GAE shapes, and GAE also at T 125 × B 163, a batch
+   that is not a multiple of 4 (the kernel's scalar loads); the tree
+   update at the priority update's B 256 and at an add's B 20,000. The LM
+   kernels are timed in bfloat16 at run (a)'s shapes and at the long
+   request's (the scan, float32, also at falcon-mamba-7b's, with a log
+   line giving a second floor beside its
    bound: one MUFU.EX2 per (b, t, d, n) at 16 per SM per clock); their
    operations count the products of the (row, key) pairs the masks let
    through at the bf16 tensor-core rate (989 TFLOP/s), the scan's at the
@@ -93,7 +100,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``scaled_dot_product_attention`` call (``enable_gqa``, the band or
    validity mask) on the same values in its own layout; the scan has none.
    Every entry also gives the kernels one call launches: the kernel nodes
-   of a CUDA graph that captured it. With ``--timing-only`` the script builds the kernels and runs this phase
+   of a CUDA graph that captured it. Before the kernels, a line of its own
+   gives the per-launch floor: ``zero_()`` of 16 floats, a library kernel
+   that does next to nothing, timed as the kernels are (``launch_floor``).
+   With ``--timing-only`` the script builds the kernels and runs this phase
    alone, on the same inputs, logging the main shapes' entries as
    ``kernels_at_main_shapes`` (no checks, no launch counts): run from two
    checkouts in turn, it times two versions of the kernels on one card.
@@ -194,6 +204,7 @@ CAP = 1 << 20
 MAIN_SAMPLERS = (10, 16, 125)   # the main path: samplers, envs each, horizon
 # the timing lines besides the kernels line: shape label, JSON key
 TIMING_LINES = (("vector", "kernels_at_vector_shapes"),
+                ("ragged", "kernels_at_ragged_shapes"),
                 ("long", "kernels_at_long_request"),
                 ("falcon", "kernels_at_falcon_shapes"),
                 ("add", "kernels_at_add_shapes"))
@@ -283,6 +294,86 @@ def gae_inputs(T, B, seed):
     d = rng.random((T, B)) < 0.05
     lv = rng.standard_normal(B).astype(np.float32)
     return [torch.from_numpy(x).to("cuda") for x in (r, v, d, lv)]
+
+
+# the redesigned kernels' tile edges: gae's 32-column blocks, 32-row
+# vector loads and 64-step chunks, cheetah's 5 envs a warp and 20 a block
+GAE_EDGE_T = (1, 31, 32, 33, 125, 128, 129, 1000)
+GAE_EDGE_B = (1, 31, 33, 160, 4096, 4097)
+GAE_DONES = ("none", "all", "t=0", "t=T-1", "10%")
+CHEETAH_EDGE_B = (1, 16, 31, 33, 4096, 4097)
+CHEETAH_ENDS = ("none", "all", "mixed")
+
+
+def gae_edge_inputs(T, B, dones, seed):
+    """``gae_inputs`` with the episode ends of ``dones``: none, all, only
+    at t = 0, only at t = T - 1, or 10 % at random."""
+    r, v, _, lv = gae_inputs(T, B, seed)
+    rng = np.random.default_rng(seed + 1)
+    d = torch.zeros((T, B), dtype=torch.bool, device="cuda")
+    if dones == "all":
+        d[:] = True
+    elif dones == "t=0":
+        d[0] = True
+    elif dones == "t=T-1":
+        d[-1] = True
+    elif dones == "10%":
+        d = torch.from_numpy(rng.random((T, B)) < 0.1).to("cuda")
+    return r, v, d, lv
+
+
+def cheetah_edge_inputs(B, ends, horizon, seed):
+    """``env_inputs`` for cheetah with no, every or a third of the rows at
+    their last step."""
+    state, a, rs, ro, p = env_inputs("cheetah", B, horizon, seed)
+    if ends != "mixed":
+        t = state[4].fill_(horizon - 1 if ends == "all" else horizon - 2)
+        state = state[:4] + (t,)
+    return state, a, rs, ro, p
+
+
+def check_rl_edges():
+    """Phase 3 for the redesigned gae and cheetah kernels at their tile
+    edges: every leaf bit for bit, one launch per call."""
+    from repro_torch.kernels.env_step import ops as env_ops
+    from repro_torch.kernels.env_step import ref as env_ref
+    from repro_torch.kernels.gae import ops as gae_ops
+    n = 0
+    for T in GAE_EDGE_T:
+        for B in GAE_EDGE_B:
+            for dones in GAE_DONES:
+                r, v, d, lv = gae_edge_inputs(T, B, dones, seed=T * B)
+                before = gae_ops.gae_cuda.launches
+                got = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
+                want = gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95)
+                torch.cuda.synchronize()
+                assert gae_ops.gae_cuda.launches == before + 1
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w), (
+                        f"gae T={T} B={B} dones {dones}: "
+                        f"{int((g != w).sum())} elements differ")
+                n += 1
+    log(f"check gae at the tile edges: T in {GAE_EDGE_T} x B in "
+        f"{GAE_EDGE_B} x dones {GAE_DONES}: {n} calls, bit for bit")
+    horizon, n = 50, 0
+    for B in CHEETAH_EDGE_B:
+        for ends in CHEETAH_ENDS:
+            state, a, rs, ro, p = cheetah_edge_inputs(B, ends, horizon,
+                                                      seed=B + 5)
+            params = dict(max_episode_steps=horizon, reward_scale=0.5, **p)
+            before = env_ops.cheetah_step_cuda.launches
+            got = env_ops.cheetah_step_cuda(state, a, rs, ro, **params)
+            want = env_ref.cheetah_step_batch_ref(state, a, rs, ro, **params)
+            torch.cuda.synchronize()
+            assert env_ops.cheetah_step_cuda.launches == before + 1
+            compare(f"cheetah B={B} ends {ends}", leaves(got), leaves(want),
+                    0)
+            resets = int(got[3].sum())
+            assert resets == {"none": 0, "all": B}.get(ends, resets) and (
+                ends != "mixed" or resets >= B // 3), (B, ends, resets)
+            n += 1
+    log(f"check cheetah_step at the tile edges: B in {CHEETAH_EDGE_B} x "
+        f"episode ends {CHEETAH_ENDS}: {n} calls, every leaf bit for bit")
 
 
 def ring_leaves(rows, gen, kinds=None):
@@ -912,6 +1003,15 @@ def time_kernels():
             nbytes(r, d, lv, ret),
             lambda: gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99),
             lambda: gae_ops.discounted_returns_ref(r, d, lv, 0.99), 200, 5)
+    # GAE at a batch that is not a multiple of 4, where the kernel loads
+    # one float at a time
+    T, gB = h, n * per + 3
+    r, v, d, lv = gae_inputs(T, gB, seed=3)
+    adv, ret = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
+    timings["ragged", "gae"] = measure(
+        "gae", f"T={T} B={gB}", T * gB, nbytes(r, v, d, lv, adv, ret),
+        lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95),
+        lambda: gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95), 200, 5)
     # the replay path at the SAC cheetah run's shapes: 20,000 transitions
     # of 144 B inserted into 2^20 slots, 256 drawn from 60,000 filled ones
     n_rows, B = n * per * h, 256
@@ -966,6 +1066,17 @@ def time_kernels():
     return timings
 
 
+def launch_floor():
+    """The per-launch floor: one library kernel that does next to nothing
+    (``zero_()`` of 16 floats), its device time from graph replay as
+    ``measure`` takes it, and its call time. Logged on a line of its own."""
+    z = torch.empty(16, device="cuda")
+    floor = {"kernel": "Tensor.zero_ of 16 float32",
+             "kernels_per_call": kernels_per_call(z.zero_),
+             "ms": time_ms(z.zero_, 200), "device_ms": graph_ms(z.zero_, 200)}
+    log(json.dumps({"launch_floor": floor}))
+
+
 def log_timings(timings, labels):
     """One JSON line per shape label: the kernels timed there."""
     for label, key in labels:
@@ -1018,6 +1129,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
     if args.timing_only:
+        launch_floor()
         log_timings(time_kernels(),
                     (("main", "kernels_at_main_shapes"),) + TIMING_LINES)
         print_ok()
@@ -1066,6 +1178,7 @@ def main(argv=None) -> int:
         u, e = compare(f"gae {T}x{B}", got, want, 0)
         errs["gae"] = (max(errs["gae"][0], u), max(errs["gae"][1], e))
         log(f"check gae T={T} B={B}: exact (max {u} ulp)")
+    check_rl_edges()
     for T, B in ((1, 1), (125, 160), (128, 4096), (125, 160 + 3), (0, 5)):
         r, _, d, lv = gae_inputs(T, B, seed=T * B + 1)
         got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
@@ -1348,6 +1461,7 @@ def main(argv=None) -> int:
     lm_report = lm_cuda_vs_ref(run_a)
     del run_a
 
+    launch_floor()
     timings = time_kernels()
     entries = []
     for name in kernels.KERNELS:

@@ -1,23 +1,28 @@
 // Fused batched env step + auto-reset for pendulum, cart-pole and cheetah.
 //
 // Replaces the TPU kernels pendulum_step_pallas, cartpole_step_pallas and
-// cheetah_step_pallas (src/repro/kernels/env_step/env_step_pallas.py). One thread per env
-// instance evaluates the physics, reward, termination and observation in the
+// cheetah_step_pallas (src/repro/kernels/env_step/env_step_pallas.py). Each
+// kernel evaluates the physics, reward, termination and observation in the
 // expression order of the plain versions (repro_torch/kernels/env_step/ref.py),
 // then selects the reset candidates where the episode ended. The TPU kernels'
 // (leaf, B) lane tiles are not carried over: the public layout is kept, i.e.
 // state leaves (B,) or (B, 6), actions (B, act_dim), reset obs (B, obs_dim).
+// Pendulum and cart-pole take one thread per env, 256 a block. Cheetah takes
+// six lanes per env (one per joint, see cheetah_step_kernel), so that its
+// (B, 6) and (B, 14) leaves are read and written by consecutive lanes and a
+// batch of 4,096 spreads over the whole card, and so that the five thrust
+// sines of an env run side by side on five lanes.
 //
 // Bound on an H100: HBM bytes. Each instance reads its state and actions
 // once and writes its next state, obs, reward and done once (cheetah: 84 B
 // read + 121 B written; cart-pole: 24 B read + 41 B written; pendulum:
 // 16 B read + 29 B written); only an instance whose episode ended also
 // reads its reset candidates (cheetah 116 B, cart-pole 36 B, pendulum
-// 24 B). Against those bytes stand a few dozen float
-// operations per instance, far below the card's operations-per-byte
-// balance. The design keeps everything per thread
-// in registers (cheetah's joint roll, 5-term thrust mean and 6-term control
-// sum are unrolled) and makes one pass over memory.
+// 24 B). Against those bytes stand a few dozen float operations per
+// instance, far below the card's operations-per-byte balance. At the
+// batches the RL runs use (16 and 4,096 envs) the bytes take well under a
+// microsecond; what is left is the launch and one dependent chain of
+// loads, sines and stores per env, which the designs keep short.
 //
 // Built with -fmad=false: no FMA contraction, so results round like the
 // plain PyTorch version's separate elementwise ops. sinf/cosf are CUDA's
@@ -93,7 +98,22 @@ __global__ void pendulum_step_kernel(
   }
 }
 
-__global__ void cheetah_step_kernel(
+// cheetah: six lanes per env, one per joint, five envs on lanes 0..29 of a
+// warp (lanes 30 and 31 idle) and kCheetahWarps warps a block, so B 4,096
+// spreads over 205 blocks. Each lane reads its env's whole row of act, th
+// and om (the env's six lanes read the same addresses) and updates all six
+// joints, then takes the one thrust sine of its own joint; __shfl_sync
+// gathers the five sines to each lane of the env, which sums them in the
+// plain order (j = 0 ... 4). A lane writes its own joint of oth and oom
+// and its own floats of obs: consecutive lanes, consecutive floats. The
+// reset candidates of a row whose episode ended are read as soon as its t
+// is known, so their round trip overlaps the physics.
+constexpr int kCheetahWarps = 4;
+constexpr int kCheetahEnvsPerWarp = 32 / kJ;                      // 5
+constexpr int kCheetahEnvs = kCheetahWarps * kCheetahEnvsPerWarp;  // 20
+constexpr int kCheetahThreads = 32 * kCheetahWarps;
+
+__global__ void __launch_bounds__(kCheetahThreads) cheetah_step_kernel(
     int B, const float* __restrict__ th, const float* __restrict__ om,
     const float* __restrict__ vx, const float* __restrict__ pitch,
     const int32_t* __restrict__ t, const float* __restrict__ act,
@@ -105,67 +125,105 @@ __global__ void cheetah_step_kernel(
     int32_t* __restrict__ ot, float* __restrict__ oobs,
     float* __restrict__ orew, uint8_t* __restrict__ odone,
     int max_episode_steps, float ctrl_cost, float reward_scale) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  float a[kJ], th0[kJ], th1[kJ], om1[kJ];
+  const int lane = threadIdx.x & 31;
+  const int g = lane / kJ, j = lane - g * kJ, base = g * kJ;
+  const int i = (blockIdx.x * kCheetahWarps + threadIdx.x / 32) *
+                    kCheetahEnvsPerWarp + g;
+  const bool active = g < kCheetahEnvsPerWarp && i < B;
+  const size_t k6 = (size_t)kJ * i + j, k14 = (size_t)kCheetahObs * i + j;
+  float a[kJ], th0[kJ], o[kJ];
 #pragma unroll
-  for (int j = 0; j < kJ; ++j) {
-    a[j] = clip(act[kJ * i + j], -1.0f, 1.0f);
-    th0[j] = th[kJ * i + j];
-  }
+  for (int m = 0; m < kJ; ++m) a[m] = th0[m] = o[m] = 0.0f;
+  float vx_i = 0.0f, pi_i = 0.0f;
+  int32_t t_i = 0;
+  if (active) {
+    t_i = t[i];
+    vx_i = vx[i];
+    pi_i = pitch[i];
 #pragma unroll
-  for (int j = 0; j < kJ; ++j) {
-    // roll(th, 1): joint j couples to joint j-1 (joint 0 to joint 5)
-    float neighbour = 0.8f * (th0[(j + kJ - 1) % kJ] - th0[j]);
-    float o = om[kJ * i + j];
-    om1[j] = o + 0.05f * (6.0f * a[j] - 1.5f * o - 4.0f * th0[j] + neighbour);
-    th1[j] = th0[j] + 0.05f * om1[j];
+    for (int m = 0; m < kJ; ++m) {
+      a[m] = clip(act[kJ * i + m], -1.0f, 1.0f);
+      th0[m] = th[kJ * i + m];
+      o[m] = om[kJ * i + m];
+    }
   }
-  float thrust = 0.0f;
+  const int32_t nt = t_i + 1;
+  const bool done = nt >= max_episode_steps;
+  // lane j's floats of the reset candidates; lanes 0, 1, 2 also vx, pitch, t
+  float r_th = 0.0f, r_om = 0.0f, r_ob0 = 0.0f, r_ob1 = 0.0f, r_ob2 = 0.0f;
+  float r_row = 0.0f;
+  int32_t r_t = 0;
+  if (active && done) {
+    r_th = rth[k6];
+    r_om = rom[k6];
+    r_ob0 = robs[k14];
+    r_ob1 = robs[k14 + kJ];
+    if (j < 2) r_ob2 = robs[k14 + 2 * kJ];
+    if (j == 0) r_row = rvx[i];
+    if (j == 1) r_row = rpi[i];
+    if (j == 2) r_t = rt[i];
+  }
+  float th1[kJ], om1[kJ];
+#pragma unroll
+  for (int m = 0; m < kJ; ++m) {
+    // roll(th, 1): joint m couples to joint m-1 (joint 0 to joint 5)
+    float neighbour = 0.8f * (th0[(m + kJ - 1) % kJ] - th0[m]);
+    om1[m] = o[m] + 0.05f * (6.0f * a[m] - 1.5f * o[m] - 4.0f * th0[m] +
+                             neighbour);
+    th1[m] = th0[m] + 0.05f * om1[m];
+  }
+  // this lane's joint and thrust term, picked without indexing by j
+  float my_th1 = th1[0], my_om1 = om1[0], x = 0.0f, y = 0.0f;
+#pragma unroll
+  for (int m = 0; m < kJ; ++m) {
+    if (j == m) {
+      my_th1 = th1[m];
+      my_om1 = om1[m];
+      if (m < kJ - 1) {
+        x = th1[m] - th1[m + 1];
+        y = om1[m] - om1[m + 1];
+      }
+    }
+  }
+  float term = 0.0f;
+  if (active && j < kJ - 1) term = sinf(x) * y;
+  float thrust = __shfl_sync(0xffffffffu, term, base);
+#pragma unroll
+  for (int m = 1; m < kJ - 1; ++m)
+    thrust = thrust + __shfl_sync(0xffffffffu, term, base + m);
+  if (!active) return;
+  thrust = thrust / 5.0f;
   float th_sum = th1[0];
 #pragma unroll
-  for (int j = 0; j < kJ - 1; ++j) {
-    float term = sinf(th1[j] - th1[j + 1]) * (om1[j] - om1[j + 1]);
-    thrust = j == 0 ? term : thrust + term;
-    th_sum = th_sum + th1[j + 1];
-  }
-  thrust = thrust / 5.0f;
-  float nvx = 0.9f * vx[i] + 0.05f * (8.0f * thrust);
-  float npi = 0.95f * pitch[i] + 0.05f * (th_sum / 6.0f);
-  int32_t nt = t[i] + 1;
+  for (int m = 1; m < kJ; ++m) th_sum = th_sum + th1[m];
   float asq = a[0] * a[0];
 #pragma unroll
-  for (int j = 1; j < kJ; ++j) asq = asq + a[j] * a[j];
+  for (int m = 1; m < kJ; ++m) asq = asq + a[m] * a[m];
+  float nvx = 0.9f * vx_i + 0.05f * (8.0f * thrust);
+  float npi = 0.95f * pi_i + 0.05f * (th_sum / 6.0f);
   float rew = nvx - ctrl_cost * asq;
   if (reward_scale != 1.0f) rew = rew * reward_scale;
-  bool done = nt >= max_episode_steps;
-  orew[i] = rew;
-  odone[i] = done ? 1 : 0;
-  float* obs = oobs + kCheetahObs * i;
   if (done) {
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      oth[kJ * i + j] = rth[kJ * i + j];
-      oom[kJ * i + j] = rom[kJ * i + j];
-    }
-    ovx[i] = rvx[i];
-    opi[i] = rpi[i];
-    ot[i] = rt[i];
-#pragma unroll
-    for (int k = 0; k < kCheetahObs; ++k) obs[k] = robs[kCheetahObs * i + k];
+    oth[k6] = r_th;
+    oom[k6] = r_om;
+    oobs[k14] = r_ob0;
+    oobs[k14 + kJ] = r_ob1;
+    if (j < 2) oobs[k14 + 2 * kJ] = r_ob2;
   } else {
-#pragma unroll
-    for (int j = 0; j < kJ; ++j) {
-      oth[kJ * i + j] = th1[j];
-      oom[kJ * i + j] = om1[j];
-      obs[j] = th1[j];
-      obs[kJ + j] = om1[j];
-    }
-    ovx[i] = nvx;
-    opi[i] = npi;
-    ot[i] = nt;
-    obs[2 * kJ] = nvx;
-    obs[2 * kJ + 1] = npi;
+    oth[k6] = my_th1;
+    oom[k6] = my_om1;
+    oobs[k14] = my_th1;
+    oobs[k14 + kJ] = my_om1;
+    if (j < 2) oobs[k14 + 2 * kJ] = j == 0 ? nvx : npi;
+  }
+  if (j == 0) {
+    orew[i] = rew;
+    odone[i] = done ? 1 : 0;
+    ovx[i] = done ? r_row : nvx;
+  } else if (j == 1) {
+    opi[i] = done ? r_row : npi;
+  } else if (j == 2) {
+    ot[i] = done ? r_t : nt;
   }
 }
 
@@ -275,8 +333,8 @@ extern "C" int cheetah_step(
     void* oth, void* oom, void* ovx, void* opi, void* ot, void* oobs,
     void* orew, void* odone, int max_episode_steps, float ctrl_cost,
     float reward_scale, void* stream) {
-  int blocks = (B + kThreads - 1) / kThreads;
-  cheetah_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+  int blocks = (B + kCheetahEnvs - 1) / kCheetahEnvs;
+  cheetah_step_kernel<<<blocks, kCheetahThreads, 0, (cudaStream_t)stream>>>(
       B, (const float*)th, (const float*)om, (const float*)vx,
       (const float*)pitch, (const int32_t*)t, (const float*)act,
       (const float*)rth, (const float*)rom, (const float*)rvx,

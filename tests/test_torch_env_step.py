@@ -87,7 +87,7 @@ def assert_step_close(got, want, *, ulps=4):
 
 
 @pytest.mark.parametrize("name", ["pendulum", "cheetah", "cartpole"])
-@pytest.mark.parametrize("B", [1, 7, 700])
+@pytest.mark.parametrize("B", [1, 7, 700, 31, 33, 4097])
 @pytest.mark.parametrize("reward_scale", [1.0, 0.5])
 def test_plain_env_step_matches_jax_ref(name, B, reward_scale):
     state, a, rs, ro = make_inputs(name, B, seed=B)
@@ -107,6 +107,33 @@ def test_plain_env_step_matches_jax_ref(name, B, reward_scale):
     for leaf, cand in zip(got[:n_state], rs):
         np.testing.assert_array_equal(leaf[done], cand[done])
     np.testing.assert_array_equal(got[n_state][done], ro[done])
+
+
+@pytest.mark.parametrize("B", [31, 33, 4097])
+@pytest.mark.parametrize("ends", ["all", "none"])
+def test_plain_cheetah_step_matches_jax_ref_when_all_or_no_episode_ends(
+        B, ends):
+    """Every row at its last step (each takes its reset candidates), or
+    none: the batch sizes around the CUDA kernel's 5 envs a warp and 20 a
+    block."""
+    state, a, rs, ro = make_inputs("cheetah", B, seed=B + 2)
+    state = state[:4] + (np.full(B, HORIZON - 1 if ends == "all"
+                                 else HORIZON - 2, np.int32),)
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS["cheetah"])
+    step = jax.jit(lambda s, a, rs, ro: jax_env_ops.env_step(
+        "cheetah", s, a, rs, ro, impl="ref", **params))
+    want = flat(step(jax.tree.map(jnp.asarray, state), jnp.asarray(a),
+                     jax.tree.map(jnp.asarray, rs), jnp.asarray(ro)))
+    got = flat(env_ops.env_step("cheetah", to_torch(state), to_torch(a),
+                                to_torch(rs), to_torch(ro), **params))
+    assert_step_close(got, want)
+    done = got[-1]
+    assert done.all() if ends == "all" else not done.any()
+    if ends == "all":
+        for leaf, cand in zip(got[:len(state)], rs):
+            np.testing.assert_array_equal(leaf, cand)
+        np.testing.assert_array_equal(got[len(state)], ro)
 
 
 @pytest.mark.parametrize("impl", ["auto", "cuda", "pallas", "ref"])

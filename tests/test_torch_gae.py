@@ -41,7 +41,12 @@ def assert_close(got, want, ulps=4):
         np.testing.assert_allclose(g, w, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("shape", [(1, 1), (125, 160), (16, 3, 5)])
+# (T, B) beside the CUDA kernel's 32-column blocks and 128-step chunks
+EDGE_SHAPES = [(31, 31), (31, 33), (33, 31), (33, 33), (129, 31), (129, 33)]
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (125, 160), (16, 3, 5)]
+                         + EDGE_SHAPES)
 @pytest.mark.parametrize("gamma,lam", [(0.99, 0.95), (0.9, 1.0)])
 def test_plain_gae_matches_jax_ref(shape, gamma, lam):
     r, v, d, lv = inputs(shape, seed=sum(shape))
@@ -51,6 +56,24 @@ def test_plain_gae_matches_jax_ref(shape, gamma, lam):
     got = [x.numpy() for x in gae_mod.gae(
         torch.from_numpy(r), torch.from_numpy(v), torch.from_numpy(d),
         torch.from_numpy(lv), gamma, lam)]
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("ended_at", ["t=0", "t=T-1"])
+def test_plain_gae_matches_jax_ref_with_episode_ends_at_the_edges(shape,
+                                                                  ended_at):
+    """Every column's episode ends at the first or at the last step only:
+    the bootstrap is cut at the walk's last step or at its first."""
+    r, v, _, lv = inputs(shape, seed=sum(shape) + 1)
+    d = np.zeros(shape, bool)
+    d[0 if ended_at == "t=0" else -1] = True
+    want = [np.asarray(x) for x in jax_gae_ref(
+        jnp.asarray(r), jnp.asarray(v), jnp.asarray(d), jnp.asarray(lv),
+        0.99, 0.95)]
+    got = [x.numpy() for x in gae_mod.gae(
+        torch.from_numpy(r), torch.from_numpy(v), torch.from_numpy(d),
+        torch.from_numpy(lv), 0.99, 0.95)]
     assert_close(got, want)
 
 

@@ -12,7 +12,8 @@ Bounds: ``t``, ``done``, GAE and the discounted returns exact
 expressions the same way); env float
 leaves within 4 ulp per element, or 4 ulp of the leaf's magnitude where
 cancellation leaves a value near zero (``sinf``/``cosf`` may differ from
-ATen's by an ulp). The replay-ring and sum-tree kernels exactly: they move
+ATen's by an ulp); the cheetah step at its tile edges bit for bit, as it
+has measured on the H100. The replay-ring and sum-tree kernels exactly: they move
 bytes, or compare and subtract/add as the plain versions do.
 
 The LM kernels against their plain versions with ``tests/test_kernels.py``'s
@@ -152,6 +153,126 @@ def test_discounted_returns_kernel_matches_plain(cuda, shape):
     launched = int(r.numel() > 0)
     assert gae_ops.discounted_returns_cuda.launches == before + launched
     assert got.shape == want.shape and torch.equal(got, want)
+
+
+# the redesigned kernels' tile edges: gae's 32-column blocks, 32-row
+# vector loads and 64-step chunks, cheetah's 5 envs a warp and 20 a block
+# (chip_smoke.py checks the same edges)
+GAE_EDGE_T = [1, 31, 32, 33, 125, 128, 129, 1000]
+GAE_EDGE_B = [1, 31, 33, 160, 4096, 4097]
+
+
+def _gae_inputs(T, B, dones, device, seed):
+    rng = np.random.default_rng(seed)
+    r, v = (torch.from_numpy(rng.standard_normal((T, B)).astype(np.float32))
+            .to(device) for _ in range(2))
+    d = torch.zeros((T, B), dtype=torch.bool)
+    if dones == "all":
+        d[:] = True
+    elif dones == "t=0":
+        d[0] = True
+    elif dones == "t=T-1":
+        d[-1] = True
+    elif dones == "10%":
+        d = torch.from_numpy(rng.random((T, B)) < 0.1)
+    lv = torch.from_numpy(rng.standard_normal(B).astype(np.float32)).to(device)
+    return r, v, d.to(device), lv
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dones", ["none", "all", "t=0", "t=T-1", "10%"])
+@pytest.mark.parametrize("B", GAE_EDGE_B)
+@pytest.mark.parametrize("T", GAE_EDGE_T)
+def test_gae_kernel_at_tile_edges(cuda, T, B, dones):
+    """Bit for bit against the plain version, one launch a call."""
+    r, v, d, lv = _gae_inputs(T, B, dones, cuda, seed=T * B)
+    before = gae_ops.gae_cuda.launches
+    got = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
+    want = gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95)
+    torch.cuda.synchronize()
+    assert gae_ops.gae_cuda.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ends", ["none", "all", "mixed"])
+@pytest.mark.parametrize("B", [1, 16, 31, 33, 4096, 4097])
+def test_cheetah_step_kernel_at_tile_edges(cuda, B, ends):
+    """Every leaf bit for bit against the plain version, one launch a
+    call, with no, every or a third of the episodes ending."""
+    state, a, rs, ro = env_inputs("cheetah", B, cuda)
+    if ends != "mixed":
+        state = state[:4] + (torch.full_like(
+            state[4], HORIZON - 1 if ends == "all" else HORIZON - 2),)
+    params = dict(max_episode_steps=HORIZON, reward_scale=0.5,
+                  **PARAMS["cheetah"])
+    before = env_ops.cheetah_step_cuda.launches
+    got = env_ops.cheetah_step_cuda(state, a, rs, ro, **params)
+    want = env_ref.cheetah_step_batch_ref(state, a, rs, ro, **params)
+    torch.cuda.synchronize()
+    assert env_ops.cheetah_step_cuda.launches == before + 1
+    for g, w in zip(leaves(got), leaves(want)):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    n_done = int(got[3].sum())
+    assert n_done == {"none": 0, "all": B}.get(ends, n_done)
+
+
+def _capture(fn):
+    """``fn`` run once on a side stream (build, load), then captured in a
+    CUDA graph; returns the graph and the captured call's outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+@pytest.mark.gpu
+def test_gae_kernel_replays_from_a_cuda_graph(cuda):
+    """One call captured in a CUDA graph, replayed on fresh inputs copied
+    into the captured ones, equals an eager call on the same inputs."""
+    T, B = 129, 4097
+    r, v, d, lv = (torch.zeros_like(x) for x in
+                   _gae_inputs(T, B, "none", cuda, seed=0))
+    graph, (adv, ret) = _capture(
+        lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95))
+    for seed, dones in enumerate(("10%", "t=0", "all")):
+        for x, y in zip((r, v, d, lv), _gae_inputs(T, B, dones, cuda, seed)):
+            x.copy_(y)
+        graph.replay()
+        want = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
+        torch.cuda.synchronize()
+        assert torch.equal(adv, want[0]) and torch.equal(ret, want[1])
+
+
+@pytest.mark.gpu
+def test_cheetah_step_kernel_replays_from_a_cuda_graph(cuda):
+    """As for gae: a captured call replayed on fresh states equals an
+    eager call, the reset select included."""
+    B = 4097
+    fresh = [env_inputs("cheetah", B + k, cuda) for k in range(3)]
+    args = [tuple(x[:B].clone() for x in leaf) if isinstance(leaf, tuple)
+            else leaf[:B].clone() for leaf in fresh[0]]
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS["cheetah"])
+    graph, out = _capture(
+        lambda: env_ops.cheetah_step_cuda(*args, **params))
+    for inputs in fresh:
+        for dst, src in zip(args, inputs):
+            for x, y in (zip(dst, src) if isinstance(dst, tuple)
+                         else [(dst, src)]):
+                x.copy_(y[:B])
+        graph.replay()
+        want = env_ops.cheetah_step_cuda(*args, **params)
+        torch.cuda.synchronize()
+        assert int(want[3].sum()) > 0
+        for g, w in zip(leaves(out), leaves(want)):
+            assert np.array_equal(g, w)
 
 
 @pytest.mark.gpu

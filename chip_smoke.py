@@ -63,7 +63,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
    requests in 3 waves, budgets 32 and 12, an EOS id), and falcon-mamba-7b
    cut to 8 of 64 layers (batch 4, prompt 16, 16 tokens, 2 requests);
    tokens in [0, vocab), logits finite, and per prefill one scan and one
-   flash launch per layer, per decode step one decode launch per layer;
+   flash launch per layer, per decode step one decode launch per layer.
+   Before the LM runs, the actor plane through the train CLI, each run
+   with its workers on the card: PPO on cheetah over 10 worker processes
+   in lock-step (``--backend process``, the paper's 10 × 16 × 125, 3
+   iterations) and over 10 sampler threads (``--backend threaded``), each
+   bit for bit equal to the inline run of the same seed above (every
+   merged trajectory and the final weights); async PPO with staleness
+   decay over the process pool and over threads (6 updates of 10
+   rollouts each, three times what the pool's ring holds at start-up;
+   logs finite; staleness, worker utilisation and fleet size printed);
+   SAC on cheetah
+   with prioritized replay over 10 processes, bit for bit equal to the
+   inline SAC run (weights, ring and tree), the ring and tree kernels
+   launching in the learner; PPO on pendulum over 4 processes under a
+   seeded kill and torn-write schedule, completing with at least one
+   respawn and a reclaimed slot (the supervisor's events printed). The
+   workers report their launches, which join the run's counts (the
+   cheetah step is counted in the workers; every worker incarnation's
+   last report, so the fault run's workers hold at least 3 x 4 x 125
+   pendulum steps); each pool's start seconds, each worker's start
+   seconds, device memory (``nvidia-smi --query-compute-apps``, sampled
+   during the run) and allocator peak reserve (its own report), the
+   card's whole use (``torch.cuda.mem_get_info`` before and at its peak)
+   and the wall seconds of every collect are printed; after each run no
+   worker process is alive and no ``walle-<pid>-*`` block of the
+   script's own pools is left in /dev/shm;
 5. reference: small PPO, SAC prioritized, TRPO cart-pole and DDPG
    prioritized pendulum runs with the kernels, and the same runs with the
    plain versions (``kernels="ref"``), must end with the same weights bit
@@ -117,13 +142,18 @@ import argparse
 import contextlib
 import ctypes
 import dataclasses
+import glob
 import io
 import json
 import math
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1086,6 +1116,298 @@ def log_timings(timings, labels):
 
 
 # ------------------------------------------------------------------ main
+@contextlib.contextmanager
+def recording(backend_cls):
+    """While the block runs, keep a copy of every merged trajectory
+    ``backend_cls.collect`` returns (``trajs``) and the wall seconds of
+    each call, publish, transport and device barrier included
+    (``walls``)."""
+    rec = types.SimpleNamespace(trajs=[], walls=[])
+    collect = backend_cls.collect
+
+    def recorded(self, params):
+        t0 = time.perf_counter()
+        merged, stats = collect(self, params)
+        torch.cuda.synchronize()
+        rec.walls.append(time.perf_counter() - t0)
+        rec.trajs.append({k: v.clone() for k, v in merged.items()})
+        return merged, stats
+
+    backend_cls.collect = recorded
+    try:
+        yield rec
+    finally:
+        backend_cls.collect = collect
+
+
+def replay_tensors(runner):
+    """The replay ring's leaves, the tree and the max priority."""
+    ring, tree, max_p = runner.plane_state[0]
+    return [tree.flat, max_p, *ring.storage.values()]
+
+
+def snapshot_run(label, result, rec, plane=False):
+    """What a run must reproduce bit for bit: its merged trajectories, its
+    final weights and (``plane``) its replay state. Logs the wall seconds
+    of its collects."""
+    log(f"  {label}: collect wall s {[round(w, 4) for w in rec.walls]}")
+    tensors = [p.detach().clone() for p in result.params.parameters()]
+    if plane:
+        tensors += [x.clone() for x in replay_tensors(result.runner)]
+    return {"trajs": rec.trajs, "tensors": tensors}
+
+
+def same_run(label, got, want):
+    assert len(got["trajs"]) == len(want["trajs"]) > 0, label
+    for a, b in zip(got["trajs"], want["trajs"]):
+        assert sorted(a) == sorted(b), label
+        for k in b:
+            assert a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]), (
+                f"{label}: trajectory leaf {k} differs from the inline run")
+    assert len(got["tensors"]) == len(want["tensors"]), label
+    assert all(torch.equal(a, b) for a, b in zip(got["tensors"],
+                                                 want["tensors"])), (
+        f"{label}: final weights or replay state differ from the inline run")
+    log(f"  {label}: {len(got['trajs'])} merged trajectories and "
+        f"{len(got['tensors'])} tensors bit for bit equal to the inline run")
+
+
+class GpuMemory:
+    """Samples device memory every ``period`` seconds while the block
+    runs: each process's (``nvidia-smi
+    --query-compute-apps=pid,used_memory``; ``peak`` maps pid to the most
+    MiB seen, ``listing`` keeps the tool's last output) and the card's
+    whole use (``torch.cuda.mem_get_info``: ``used_before`` at the start,
+    ``used_peak`` the most seen, MiB)."""
+
+    def __init__(self, period=0.5):
+        self.period = period
+        self.peak = {}
+        self.listing = ""
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    @staticmethod
+    def used_mib():
+        free, total = torch.cuda.mem_get_info()
+        return (total - free) / 2 ** 20
+
+    def _poll(self):
+        while not self._stop.is_set():
+            self.used_peak = max(self.used_peak, self.used_mib())
+            try:
+                out = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                     "--format=csv,noheader,nounits"], capture_output=True,
+                    text=True, timeout=30).stdout
+            except (OSError, subprocess.TimeoutExpired):
+                out = ""
+            self.listing = out.strip()
+            for line in out.splitlines():
+                parts = [x.strip() for x in line.split(",")]
+                if len(parts) == 2 and parts[0].isdigit() \
+                        and parts[1].isdigit():
+                    pid, mib = int(parts[0]), int(parts[1])
+                    self.peak[pid] = max(self.peak.get(pid, 0), mib)
+            self._stop.wait(self.period)
+
+    def __enter__(self):
+        self.used_before = self.used_peak = self.used_mib()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=60)
+
+
+def check_no_leftovers(label, pool=None):
+    """No worker process alive and no block of this process's pools
+    (``walle-<pid>-*``, the pools' prefix) in /dev/shm."""
+    alive = [p.pid for p in (pool._procs if pool is not None else [])
+             if p is not None and p.is_alive()]
+    children = [p.pid for p in multiprocessing.active_children()]
+    blocks = glob.glob(f"/dev/shm/walle-{os.getpid()}-*")
+    assert not alive and not children and not blocks, (
+        f"{label}: left behind processes {alive + children}, "
+        f"shared memory {blocks}")
+
+
+def actor_plane_runs(cli, counted, runs, check_logs, zero_counts,
+                     ppo_inline, sac_inline):
+    """Slice 9, the actor plane, through the train CLI at the paper's
+    size: PPO cheetah over 10 worker processes (lock-step) and 10 sampler
+    threads, each bit for bit against the inline run of the same seed;
+    async PPO with staleness decay over the process pool and over threads;
+    SAC cheetah prioritized over 10 processes, bit for bit against inline;
+    PPO pendulum over 4 processes under a seeded kill and torn-write
+    schedule. The workers' own launch counts (every incarnation's last
+    report, summed) join each run's counts; after each run nothing is
+    left behind. Returns the pools' start-up seconds, device memory and
+    per-worker launches."""
+    from repro_torch.core.backends import ProcessBackend, ThreadedBackend
+    from repro_torch.core.faults import FaultPlan, decide
+    from repro_torch.kernels import KERNELS
+    n, per, h = MAIN_SAMPLERS
+    ppo = ["--env", "cheetah", "--algo", "ppo", "--num-samplers", str(n),
+           "--global-batch", str(n * per), "--horizon", str(h),
+           "--kernels", "cuda"]
+    report = {}
+
+    def pool_run(label, argv):
+        with GpuMemory() as mem:
+            logs = counted(label, lambda: cli(argv))
+        runner = cli.result.runner
+        pool = runner.pool if hasattr(runner, "pool") else runner.backend.pool
+        reports = sorted(pool.worker_launches.items())
+        workers = {k: 0 for k in KERNELS}
+        for _key, info in reports:
+            for k, v in info["launches"].items():
+                workers[k] += v
+        devices = sorted({info["device"] for _key, info in reports})
+        runs[label] = {k: runs[label][k] + workers[k] for k in runs[label]}
+        pids = {i: p.pid for i, p in enumerate(pool._procs) if p is not None}
+        report[label] = {
+            "workers": len(pool.active), "devices": devices,
+            "incarnations": len(reports),
+            "pool_start_s": pool.startup_seconds,
+            "worker_start_s": dict(sorted(pool.worker_start_seconds.items())),
+            # each process's whole use, its CUDA context included (reads
+            # "not measured" where the tool cannot tell processes apart)
+            "worker_mem_mib": {i: mem.peak.get(pid, "not measured")
+                               for i, pid in pids.items()},
+            # what each worker's caching allocator reserved at its peak
+            # (its own report; the CUDA context is not in it)
+            "worker_reserved_mib": {
+                f"{w}.{inc}": info["memory_reserved_mib"]
+                for (w, inc), info in reports},
+            "learner_mem_mib": mem.peak.get(os.getpid(), "not measured"),
+            "nvidia_smi_compute_apps": mem.listing,
+            "device_used_mib": {"before": mem.used_before,
+                                "peak": mem.used_peak},
+            # the card's whole growth over the run over the worker count:
+            # the learner's allocations are in it
+            "card_growth_per_worker_mib": ((mem.used_peak - mem.used_before)
+                                           / len(pool.active)),
+            "worker_launches": {
+                f"{w}.{inc}": {k: v for k, v in info["launches"].items()
+                               if v}
+                for (w, inc), info in reports}}
+        log(f"  {label}: workers on {devices}, {len(reports)} worker "
+            f"incarnations, launches in the workers "
+            f"{ {k: v for k, v in workers.items() if v} }, pool start "
+            f"{pool.startup_seconds:.2f} s, worker start s "
+            f"{json.dumps(report[label]['worker_start_s'])}, process MiB "
+            f"{json.dumps(report[label]['worker_mem_mib'])}, allocator "
+            f"reserve MiB {json.dumps(report[label]['worker_reserved_mib'])}"
+            f", card in use {mem.used_before:.0f} -> {mem.used_peak:.0f} "
+            f"MiB")
+        assert devices and all(d.startswith("cuda") for d in devices), (
+            f"{label}: a worker left the card: {devices}")
+        check_no_leftovers(label, pool)
+        return logs, runner, workers
+
+    def async_logs(label, logs):
+        for lg in logs:
+            for k in ("staleness", "worker_utilization"):
+                assert math.isfinite(lg[k]), f"{label}: {k} {lg}"
+        log(f"  {label}: staleness {[lg['staleness'] for lg in logs]}, "
+            f"worker_utilization "
+            f"{[round(lg['worker_utilization'], 4) for lg in logs]}, "
+            f"active_workers {[lg['active_workers'] for lg in logs]}")
+
+    # 1. lock-step over 10 worker processes, against the inline run
+    label = "ppo cheetah N=10 process"
+    with recording(ProcessBackend) as trajs:
+        logs, runner, workers = pool_run(
+            label, ppo + ["--backend", "process", "--iterations", "3"])
+    check_logs(label, logs, 3, n * per * h)
+    assert workers == zero_counts(cheetah_step=3 * n * h), workers
+    assert runs[label] == zero_counts(cheetah_step=3 * n * h, gae=3), runs
+    same_run(label, snapshot_run(label, cli.result, trajs), ppo_inline)
+
+    # 2. 10 sampler threads, against the inline run
+    label = "ppo cheetah N=10 threaded"
+    with recording(ThreadedBackend) as trajs:
+        logs = counted(label, lambda: cli(
+            ppo + ["--backend", "threaded", "--iterations", "3"]))
+    check_logs(label, logs, 3, n * per * h)
+    assert runs[label] == zero_counts(cheetah_step=3 * n * h, gae=3), runs
+    same_run(label, snapshot_run(label, cli.result, trajs), ppo_inline)
+    check_no_leftovers(label)
+
+    # 3. async with staleness decay: the process pool, then threads; each
+    # update learns on one sweep's worth, n rollouts (the paper's 20,000
+    # samples), so 6 updates consume 6 n rollouts, three times what the
+    # pool's ring can hold from its start-up (n workers x 2 slots)
+    per_update = ["--iterations", "6", "--staleness", "decay",
+                  "--min-batches-per-update", str(n)]
+    label = "ppo cheetah N=10 async process"
+    logs, runner, workers = pool_run(
+        label, ppo + ["--backend", "process", "--async"] + per_update)
+    check_logs(label, logs, 6, n * per * h)
+    async_logs(label, logs)
+    queued = runner.pool.num_workers * runner.pool.slots_per_worker
+    assert 6 * n > queued, (6 * n, queued)
+    assert runs[label]["gae"] == 6 and workers["gae"] == 0, runs
+    assert workers["cheetah_step"] >= 6 * n * h, workers
+    assert workers["cheetah_step"] % h == 0, workers
+    label = "ppo cheetah N=10 async threads"
+    logs = counted(label, lambda: cli(ppo + ["--async"] + per_update))
+    check_logs(label, logs, 6, n * per * h)
+    async_logs(label, logs)
+    counts = runs[label]
+    assert counts["gae"] == 6 and counts["cheetah_step"] >= 6 * n * h, counts
+    assert counts["cheetah_step"] % h == 0, counts
+    check_no_leftovers(label)
+
+    # 4. SAC prioritized over 10 worker processes, against the inline run
+    label = "sac cheetah N=10 prioritized process"
+    updates = 4
+    with recording(ProcessBackend) as trajs:
+        logs, runner, workers = pool_run(label, [
+            "--env", "cheetah", "--algo", "sac", "--buffer", "prioritized",
+            "--num-samplers", str(n), "--global-batch", str(n * per),
+            "--horizon", str(h), "--iterations", "3", "--replay-capacity",
+            "1000000", "--replay-batch", "256", "--backend", "process",
+            "--kernels", "cuda"])
+    check_logs(label, logs, 3, n * per * h)
+    assert workers == zero_counts(cheetah_step=3 * n * h), workers
+    assert runs[label] == zero_counts(
+        cheetah_step=3 * n * h, ring_insert=3, ring_gather=3 * updates,
+        sumtree_find=3 * updates, sumtree_update=3 * (1 + updates)), runs
+    same_run(label, snapshot_run(label, cli.result, trajs, plane=True),
+             sac_inline)
+
+    # 5. faults: a seeded kill and torn-write schedule over 4 workers
+    plan_text = "kill:0.1,torn:0.1,seed:13"
+    plan = FaultPlan.parse(plan_text)
+    fired = {decide(plan, w, 1, s) for w in range(4) for s in range(3)}
+    assert {"kill", "torn"} <= fired, fired          # both fire in the run
+    label = "ppo pendulum 4 workers faults"
+    logs, runner, workers = pool_run(label, [
+        "--env", "pendulum", "--algo", "ppo", "--backend", "process",
+        "--num-samplers", "4", "--global-batch", str(4 * per), "--horizon",
+        str(h), "--iterations", "3", "--inject-faults", plan_text,
+        "--max-respawns", "8", "--kernels", "cuda"])
+    check_logs(label, logs, 3, 4 * per * h)
+    sup = runner.backend.supervisor
+    assert sup.respawns >= 1 and logs[-1]["respawns"] == sup.respawns
+    assert sup.slots_reclaimed >= 1, "no torn slot was reclaimed"
+    # every sweep's 4 rollouts were launched by some incarnation, a torn
+    # one's too: the reports of all incarnations hold at least 3 x 4 x h
+    assert runs[label]["gae"] == 3, runs
+    assert workers["pendulum_step"] >= 3 * 4 * h, workers
+    assert workers["pendulum_step"] % h == 0, workers
+    for e in sup.events:
+        log(f"  supervisor: {e.kind} worker {e.worker_id}: {e.detail}")
+    report[label]["respawns"] = sup.respawns
+    report[label]["slots_reclaimed"] = sup.slots_reclaimed
+    report[label]["recovery_s"] = sup.recovery_s
+    return report
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -1098,6 +1420,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing to check", file=sys.stderr)
         return 1
     from repro_torch import kernels
+    from repro_torch.core.backends import InlineBackend
     from repro_torch.experiment import ExperimentSpec, Schedule, run
     from repro_torch.kernels import build
     from repro_torch.kernels.env_step import ops as env_ops
@@ -1289,10 +1612,12 @@ def main(argv=None) -> int:
         return {**{k: 0 for k in kernels.KERNELS}, **nonzero}
 
     n, per, h = MAIN_SAMPLERS
-    logs = counted("cheetah N=10", lambda: cli(
-        ["--mode", "rl", "--env", "cheetah", "--algo", "ppo",
-         "--num-samplers", str(n), "--global-batch", str(n * per),
-         "--horizon", str(h), "--iterations", "3"]))
+    with recording(InlineBackend) as trajs:
+        logs = counted("cheetah N=10", lambda: cli(
+            ["--mode", "rl", "--env", "cheetah", "--algo", "ppo",
+             "--num-samplers", str(n), "--global-batch", str(n * per),
+             "--horizon", str(h), "--iterations", "3"]))
+    ppo_inline = snapshot_run("cheetah N=10", cli.result, trajs)
     check_logs("cheetah N=10", logs, 3, n * per * h)
     assert runs["cheetah N=10"] == zero_counts(cheetah_step=3 * n * h,
                                                gae=3)
@@ -1316,11 +1641,14 @@ def main(argv=None) -> int:
             assert torch.isfinite(p).all(), "non-finite weights"
 
     updates, n_leaves = 4, len(CHEETAH_LEAVES)
-    logs = counted("sac cheetah N=10 prioritized", lambda: cli(
-        ["--env", "cheetah", "--algo", "sac", "--buffer", "prioritized",
-         "--num-samplers", str(n), "--global-batch", str(n * per),
-         "--horizon", str(h), "--iterations", "3",
-         "--replay-capacity", "1000000", "--replay-batch", "256"]))
+    with recording(InlineBackend) as trajs:
+        logs = counted("sac cheetah N=10 prioritized", lambda: cli(
+            ["--env", "cheetah", "--algo", "sac", "--buffer", "prioritized",
+             "--num-samplers", str(n), "--global-batch", str(n * per),
+             "--horizon", str(h), "--iterations", "3",
+             "--replay-capacity", "1000000", "--replay-batch", "256"]))
+    sac_inline = snapshot_run("sac cheetah N=10 prioritized", cli.result,
+                              trajs, plane=True)
     check_logs("sac cheetah N=10 prioritized", logs, 3, n * per * h)
     assert runs["sac cheetah N=10 prioritized"] == zero_counts(
         cheetah_step=3 * n * h, ring_insert=3,
@@ -1409,6 +1737,11 @@ def main(argv=None) -> int:
     log(f"  ddpg prioritized: ring {ring.size} of {CAP}, tree total "
         f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
 
+    # slice 9: the actor plane
+    actor_report = actor_plane_runs(cli, counted, runs, check_logs,
+                                    zero_counts, ppo_inline, sac_inline)
+    del ppo_inline, sac_inline
+
     # slice 4: LM serving, hymba-1.5b and falcon-mamba-7b
     run_a = lm_serve_runs(counted, runs, zero_counts)
 
@@ -1438,9 +1771,7 @@ def main(argv=None) -> int:
             f"bit for bit equal, mean returns {got_ret}")
 
     def replay_plane(res):
-        """The replay ring's leaves, the tree and the max priority."""
-        ring, tree, max_p = res.runner.plane_state[0]
-        return [tree.flat, max_p, *ring.storage.values()]
+        return replay_tensors(res.runner)
 
     small = Schedule(num_samplers=2, global_batch=8, horizon=40,
                      iterations=2)
@@ -1473,6 +1804,7 @@ def main(argv=None) -> int:
             **timings["main", name]})
     log_timings(timings, TIMING_LINES)
     log(json.dumps({"lm_cuda_vs_ref": lm_report}))
+    log(json.dumps({"actor_plane": actor_report}))
     log(json.dumps({"launches_by_run": runs}))
     print(json.dumps({"kernels": entries}), flush=True)
     print_ok()

@@ -24,6 +24,13 @@ from repro_torch.algos.ddpg import (
     init_ddpg,
 )
 from repro_torch.algos.ppo import PPOConfig, make_mlp_learner, mean_metrics
+from repro_torch.algos.staleness import (
+    GAP_KEY,
+    STALENESS_OFF,
+    WEIGHT_KEY,
+    StalenessConfig,
+    decay_weights,
+)
 from repro_torch.algos.trpo import TRPOConfig, make_trpo_learner
 from repro_torch.core import sampler as sampler_mod
 from repro_torch.models import mlp_policy
@@ -38,6 +45,25 @@ class AlgorithmBase:
     needs_next_obs = False
     default_buffer = "fifo"
     updates_per_collect = 1
+    # trajectory leaves that hold one row per env, not (T, B) ones
+    tail_keys: Tuple[str, ...] = ()
+    # importance-weighted staleness correction (algos/staleness.py): off
+    # unless the experiment enables it through ``enable_staleness``
+    supports_staleness = False
+    staleness: StalenessConfig = STALENESS_OFF
+
+    def enable_staleness(self, cfg) -> None:
+        """Install a staleness-correction config (mode string, dict or
+        ``StalenessConfig``). A disabled config is always accepted; an
+        enabled one needs ``supports_staleness``."""
+        cfg = StalenessConfig.parse(cfg)
+        if cfg.enabled and not self.supports_staleness:
+            raise ValueError(
+                f"algorithm {self.name!r} does not support staleness "
+                f"correction (supports_staleness=False): its update has "
+                f"no importance-weighting seam; use staleness mode 'off' "
+                f"or a supporting algorithm (ppo, ddpg, sac)")
+        self.staleness = cfg
 
     def make_rollout(self, env, horizon: int):
         return sampler_mod.make_algo_rollout(self, env, horizon)
@@ -58,31 +84,54 @@ class OffPolicyAlgorithm(AlgorithmBase):
     """Shared plane wiring for replay-based learners: full transitions
     (``next_obs``) recorded at collect time, the transition schema buffers
     allocate, and the learner noise drawn with each sampled batch (the
-    keys in ``learner_noise``; none for DDPG). Staleness correction is not
-    ported (``experiment`` rejects it)."""
+    keys in ``learner_noise``; none for DDPG).
+
+    Staleness correction, when enabled: ``observe`` turns the
+    trajectory's params-version gap into a per-transition weight
+    (``staleness_w``), stored beside the transition, and ``sample``
+    multiplies it into the buffer's importance weights, which the DDPG and
+    SAC critic losses honour. Disabled, no such key exists."""
 
     on_policy = False
     needs_next_obs = True
     default_buffer = "uniform"
     updates_per_collect = 4
     learner_noise: Tuple[str, ...] = ()
+    supports_staleness = True
 
     def transition_example(self, env, device) -> Dict[str, torch.Tensor]:
         """One zeroed transition on ``device``: the storage schema."""
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=device)
 
-        return {"obs": zeros(1, env.obs_dim),
-                "actions": zeros(1, env.act_dim),
-                "rewards": zeros(1),
-                "next_obs": zeros(1, env.obs_dim),
-                "dones": zeros(1, dtype=torch.bool)}
+        ex = {"obs": zeros(1, env.obs_dim),
+              "actions": zeros(1, env.act_dim),
+              "rewards": zeros(1),
+              "next_obs": zeros(1, env.obs_dim),
+              "dones": zeros(1, dtype=torch.bool)}
+        if self.staleness.enabled:
+            ex[WEIGHT_KEY] = zeros(1)
+        return ex
+
+    def observe(self, buffer, state, traj):
+        if self.staleness.enabled:
+            traj = dict(traj)
+            gap = traj.pop(GAP_KEY, None)
+            traj[WEIGHT_KEY] = (
+                torch.ones_like(traj["rewards"], dtype=torch.float32)
+                if gap is None           # lock-step paths record no gap
+                else decay_weights(self.staleness, gap))
+        return buffer.add(state, traj)
 
     def sample(self, buffer, state, generator):
-        """The buffer's batch, then one standard-normal (B, act_dim) draw
-        per key of ``learner_noise``, from ``generator`` after the buffer's
-        draws (the reference passes a key as ``batch["rng"]``)."""
+        """The buffer's batch (its ``staleness_w`` folded into
+        ``weights``), then one standard-normal (B, act_dim) draw per key of
+        ``learner_noise``, from ``generator`` after the buffer's draws (the
+        reference passes a key as ``batch["rng"]``)."""
         batch = buffer.sample(state, generator)
+        if WEIGHT_KEY in batch:
+            sw = batch.pop(WEIGHT_KEY)
+            batch["weights"] = batch.get("weights", 1.0) * sw
         shape = tuple(batch["actions"].shape)
         for k in self.learner_noise:
             batch[k] = torch.randn(shape, generator=generator,
@@ -127,6 +176,7 @@ class GaussianMLPAlgorithm(AlgorithmBase):
     value model: the params are one ``MLPPolicy`` module."""
 
     hidden: int = 64
+    tail_keys = ("last_value",)
 
     def _init_policy(self, generator, env, device):
         return mlp_policy.init_policy(generator, env.obs_dim, env.act_dim,
@@ -144,6 +194,7 @@ class PPOAlgorithm(GaussianMLPAlgorithm):
     """Clipped-surrogate PPO with the paper's Gaussian-MLP policy."""
 
     name = "ppo"
+    supports_staleness = True
 
     def __init__(self, lr: float = 3e-4, hidden: int = 64, **cfg_kwargs):
         if "aux_coef" in cfg_kwargs:
@@ -155,6 +206,12 @@ class PPOAlgorithm(GaussianMLPAlgorithm):
         self.hidden = hidden
         self._opt = adam(self.cfg.lr)
         self._learn = make_mlp_learner(self._opt, self.cfg)
+
+    def enable_staleness(self, cfg) -> None:
+        super().enable_staleness(cfg)
+        if self.staleness.enabled:      # the weighted advantage path
+            self._learn = make_mlp_learner(self._opt, self.cfg,
+                                           staleness=self.staleness)
 
     def init(self, generator, env, device):
         """Params drawn from ``generator`` (a CPU generator, so a seed gives

@@ -15,6 +15,7 @@ from typing import Dict, List
 import torch
 
 from repro_torch.algos import gae as gae_mod
+from repro_torch.algos import staleness as staleness_mod
 from repro_torch.optim import apply_updates, clip_by_global_norm
 
 
@@ -39,13 +40,21 @@ def clipped_surrogate(logp, behavior_logp, adv, clip_eps) -> torch.Tensor:
 
 def mlp_ppo_loss(policy, batch: Dict[str, torch.Tensor], cfg: PPOConfig):
     """Clipped-surrogate loss + value error - entropy bonus; returns
-    ``(loss, metrics)`` with detached metrics."""
+    ``(loss, metrics)`` with detached metrics. An optional per-sample
+    ``weights`` key (staleness correction) scales both the surrogate and
+    the value error; without it the computation is the unweighted one,
+    op for op."""
     logp = policy.logp(batch["obs"], batch["actions"])
     surrogate = clipped_surrogate(logp, batch["behavior_logp"],
                                   batch["advantages"], cfg.clip_eps)
     v = policy.value(batch["obs"])
-    pg = torch.mean(surrogate)
-    v_loss = 0.5 * torch.mean((v - batch["returns"]) ** 2)
+    w = batch.get("weights")
+    if w is None:
+        pg = torch.mean(surrogate)
+        v_loss = 0.5 * torch.mean((v - batch["returns"]) ** 2)
+    else:
+        pg = torch.mean(w * surrogate)
+        v_loss = 0.5 * torch.mean(w * (v - batch["returns"]) ** 2)
     ent = policy.entropy()
     loss = pg + cfg.value_coef * v_loss - cfg.entropy_coef * ent
     metrics = {"loss": loss, "pg_loss": pg, "v_loss": v_loss, "entropy": ent,
@@ -77,9 +86,16 @@ def mlp_ppo_update(policy, opt_state, batch, cfg: PPOConfig, optimizer):
     return policy, opt_state, mean_metrics(metrics)
 
 
-def make_mlp_learner(optimizer, cfg: PPOConfig):
+def make_mlp_learner(optimizer, cfg: PPOConfig, staleness=None):
     """``learn(policy, opt_state, traj) -> (policy, opt_state, metrics)``:
-    GAE, normalised advantages, then ``cfg.epochs`` minibatched epochs."""
+    GAE, normalised advantages, then ``cfg.epochs`` minibatched epochs.
+
+    ``staleness`` (an enabled ``algos.staleness.StalenessConfig``) weights
+    each sample by ``decay ** staleness_gap`` (the params-version gap the
+    async runtime stamps onto the trajectory) and, in ``vtrace`` mode, by
+    the truncated importance ratio ``min(rho_clip, pi_now / pi_behavior)``
+    too, without gradient. Disabled, or on a trajectory with no gap (every
+    lock-step path), no ``weights`` key is built."""
 
     def learn(policy, opt_state, traj: Dict[str, torch.Tensor]):
         # traj tensors: (T, B, ...) time-major from the sampler
@@ -93,6 +109,16 @@ def make_mlp_learner(optimizer, cfg: PPOConfig):
             "advantages": gae_mod.normalize(adv),
             "returns": ret,
         }
+        if (staleness is not None and staleness.enabled
+                and staleness_mod.GAP_KEY in traj):
+            w = staleness_mod.decay_weights(staleness,
+                                            traj[staleness_mod.GAP_KEY])
+            if staleness.mode == "vtrace":
+                with torch.no_grad():
+                    logp_now = policy.logp(traj["obs"], traj["actions"])
+                w = w * staleness_mod.vtrace_rho(staleness, logp_now,
+                                                 traj["logp"])
+            batch["weights"] = w.detach()
         flat = {k: x.reshape((-1,) + tuple(x.shape[2:]))
                 for k, x in batch.items()}
         metrics = []

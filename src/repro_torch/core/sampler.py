@@ -1,5 +1,5 @@
 """Rollout samplers, WALL-E's N parallel sampler processors (port of the
-env sampler of ``repro/core/sampler.py``).
+env sampler and ``WorkerSpec`` of ``repro/core/sampler.py``).
 
 One sampler sweeps a batched env ``horizon`` steps under the current policy.
 The reference's ``lax.scan`` becomes a Python loop and its per-instance
@@ -10,8 +10,10 @@ body also runs on injected noise and candidates, which tests use.
 """
 from __future__ import annotations
 
-from typing import Callable
+import dataclasses
+from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.envs.base import auto_reset_batch
@@ -93,6 +95,80 @@ def make_algo_rollout(algo, env, horizon: int) -> Callable:
         return (env_state, obs, generator), traj
 
     return rollout
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerSpec:
+    """Everything a fresh process needs to become one rollout worker.
+
+    Plain data only (registry names, JSON-safe kwargs, a device string), so
+    the spec pickles across a ``spawn`` boundary and the worker rebuilds its
+    env, algorithm, rollout and carry through the registry (``build``); no
+    closure, module or tensor crosses. ``seed`` is the per-worker seed (the
+    parent passes ``schedule.seed + i``), so worker i's carry is the carry
+    ``experiment.build`` makes for sampler i: the root of the ``process ==
+    inline`` rule.
+
+    ``device`` is the run's device. The reference pins its workers to the
+    CPU, since a TPU cannot be shared across processes; a CUDA device can
+    be, so the port's workers act on the card unless the run is on the
+    CPU. A worker never moves to the CPU on its own: with ``cuda`` and no
+    card, ``build`` raises.
+    """
+    env: str
+    algo: str
+    horizon: int
+    batch: int                      # per-worker env batch
+    seed: int                       # per-worker: schedule.seed + worker_id
+    kernels: str = "auto"
+    env_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    algo_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    device: str = "cuda"
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "WorkerSpec":
+        return cls(**d)
+
+    def _env_algo(self):
+        from repro_torch import registry
+        return (registry.make("env", self.env, **dict(self.env_kwargs)),
+                registry.make("algo", self.algo, **dict(self.algo_kwargs)))
+
+    def build(self):
+        """``(rollout, carry, params_template)`` in this process, on
+        ``device``, after setting the spec's kernel mode. The template is a
+        freshly drawn params module whose structure (not values) takes the
+        leaves a ``ParamsChannel`` carries."""
+        from repro_torch import kernels
+        kernels.set_kernel_mode(self.kernels)
+        env, algo = self._env_algo()
+        rollout = algo.make_rollout(env, self.horizon)
+        carry = init_env_carry(env, self.seed, self.batch, self.device)
+        params, _ = algo.init(torch.Generator().manual_seed(self.seed), env,
+                              self.device)
+        return rollout, carry, params
+
+    def traj_example(self) -> Dict[str, np.ndarray]:
+        """Zeroed numpy arrays shaped like one rollout's trajectory: each
+        leaf's dtype and trailing shape come from a rollout of horizon 1
+        over one env on the CPU, scaled to ``(horizon, batch)`` (``(batch,)``
+        for the algorithm's ``tail_keys``). Sizes the shared-memory ring
+        without a rollout on the device."""
+        env, algo = self._env_algo()
+        params, _ = algo.init(torch.Generator().manual_seed(self.seed), env,
+                              "cpu")
+        _, traj = algo.make_rollout(env, 1)(
+            params, init_env_carry(env, self.seed, 1, "cpu"))
+        out = {}
+        for k, v in traj.items():
+            lead = ((self.batch,) if k in algo.tail_keys
+                    else (self.horizon, self.batch))
+            out[k] = np.zeros(lead + tuple(v.shape[len(lead):]),
+                              dtype=v.numpy().dtype)
+        return out
 
 
 def split_batch(global_batch: int, num_samplers: int) -> int:

@@ -1,7 +1,12 @@
-"""The device barrier every phase timer needs (the part of
-``repro/core/timing.py`` the port uses: ``IterationLog`` carries the
-collection-vs-learning split itself)."""
+"""Phase timers for the collection-vs-learning split (port of
+``repro/core/timing.py``), and the device barrier every phase timer
+needs."""
 from __future__ import annotations
+
+import dataclasses
+import time
+from collections import defaultdict
+from typing import Dict, List
 
 import torch
 
@@ -12,3 +17,42 @@ def synchronize(device: torch.device) -> None:
     measures only the launches (the reference's ``block_until_ready``)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class PhaseTimer:
+    """Accumulates wall-clock seconds per named phase, per iteration."""
+    records: Dict[str, List[float]] = dataclasses.field(
+        default_factory=lambda: defaultdict(list))
+
+    def time(self, phase: str):
+        timer = self
+
+        class _Ctx:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                timer.records[phase].append(time.perf_counter() - self.t0)
+
+        return _Ctx()
+
+    def add(self, phase: str, seconds: float) -> None:
+        self.records[phase].append(seconds)
+
+    def total(self, phase: str) -> float:
+        return sum(self.records.get(phase, []))
+
+    def mean(self, phase: str) -> float:
+        r = self.records.get(phase, [])
+        return sum(r) / len(r) if r else 0.0
+
+    def fractions(self) -> Dict[str, float]:
+        totals = {k: self.total(k) for k in self.records}
+        denom = sum(totals.values()) or 1.0
+        return {k: v / denom for k, v in totals.items()}
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        return {k: {"total": self.total(k), "mean": self.mean(k),
+                    "count": len(v)} for k, v in self.records.items()}

@@ -40,7 +40,9 @@ def nstep_transitions(traj: Dict[str, torch.Tensor], n_step: int,
     """Flatten a time-major trajectory into n-step transitions.
 
     Input tensors are ``(T, B, ...)`` with keys ``obs/actions/rewards/
-    dones/next_obs``. For each start ``t <= T - n`` the transition carries
+    dones/next_obs`` (and ``staleness_w`` under staleness correction,
+    which a transition takes from its first step). For each start
+    ``t <= T - n`` the transition carries
 
         rewards    = sum_{k<n} gamma^k * r_{t+k}   (truncated at a done)
         next_obs   = next_obs_{t+n-1}
@@ -65,6 +67,8 @@ def nstep_transitions(traj: Dict[str, torch.Tensor], n_step: int,
         "next_obs": traj["next_obs"][n_step - 1:n_step - 1 + Tn],
         "discounts": (gamma ** n_step) * notdone,
     }
+    if "staleness_w" in traj:       # a transition's staleness weight is
+        out["staleness_w"] = traj["staleness_w"][:Tn]   # its first step's
     return {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in out.items()}
 
 

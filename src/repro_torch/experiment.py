@@ -10,12 +10,22 @@ the other. The device is an argument of ``build``/``run``, not a spec field:
 it defaults to ``cuda`` and, with no CUDA device, raises rather than run on
 the CPU unasked.
 
-Ported so far: runtime ``sync``, backend ``inline``, algos ``ppo``,
-``trpo``, ``ddpg`` and ``sac``, buffers ``fifo``, ``uniform`` and
-``prioritized`` (with ``buffer_kwargs``), envs ``pendulum``, ``cartpole``
-and ``cheetah``, with ``num_samplers × global_batch`` or ``env_batch``
-collection. Anything else is rejected with a
-message naming ROADMAP.md, never ignored.
+Ported so far: runtimes ``sync`` and ``async``, backends ``inline``,
+``threaded`` and ``process``, algos ``ppo``, ``trpo``, ``ddpg`` and
+``sac``, buffers ``fifo``, ``uniform`` and ``prioritized`` (with
+``buffer_kwargs``), envs ``pendulum``, ``cartpole`` and ``cheetah``, with
+``num_samplers × global_batch`` or ``env_batch`` collection; staleness
+correction, fault injection and elastic worker fleets. Anything else is
+rejected with a message naming ROADMAP.md, never ignored.
+
+The actor plane: ``backend="process"`` (``schedule.num_workers`` workers,
+default ``num_samplers``) collects with worker processes, each rebuilt from
+a ``WorkerSpec`` on the run's device (the reference pins its workers to the
+CPU) and fed through shared memory (``core/ipc.py``), supervised by
+default; worker i takes sampler i's seed, so ``process == inline`` bit for
+bit. With ``runtime="async"`` the samplers free-run (threads, or the
+workers into the shared ring, two slots each) while the learner drains
+them.
 
 The runner owns the plane state ``(buffer_state, generator)``. The
 generator lives on the device and is seeded from ``schedule.seed`` with its
@@ -40,10 +50,15 @@ from repro_torch import kernels as kernels_mod
 from repro_torch import registry
 from repro_torch.algos.api import make_train_step
 from repro_torch.core import sampler as sampler_mod
-from repro_torch.core.orchestrator import IterationLog, SyncRunner
+from repro_torch.algos.staleness import StalenessConfig
+from repro_torch.core.orchestrator import (
+    AsyncOrchestrator,
+    IterationLog,
+    SyncRunner,
+)
 from repro_torch.envs.vector import VectorEnv
 
-RUNTIMES = ("sync",)
+RUNTIMES = ("sync", "async")
 
 # added to the seed of the plane's generator, so that it never equals the
 # params generator's seed or a sampler's (seed + i)
@@ -90,6 +105,13 @@ class ExperimentSpec:
     staleness: Optional[Any] = None
     faults: Optional[str] = None
 
+    def __post_init__(self):
+        # a StalenessConfig is kept as its dict, so that to_dict/from_dict
+        # round-trip through plain data
+        if dataclasses.is_dataclass(self.staleness) and not isinstance(
+                self.staleness, type):
+            object.__setattr__(self, "staleness", self.staleness.to_dict())
+
     def to_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
 
@@ -133,7 +155,9 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _validate(spec: ExperimentSpec) -> None:
-    """Reject every choice this port cannot run yet, by name."""
+    """Reject every choice this port cannot run yet, by name
+    (``NotImplementedError``), and every combination the reference rejects
+    (``ValueError``, the reference's checks)."""
     if spec.runtime not in RUNTIMES:
         raise _not_ported(f"runtime {spec.runtime!r}")
     for kind, name in (("env", spec.env), ("algo", spec.algo),
@@ -144,14 +168,37 @@ def _validate(spec: ExperimentSpec) -> None:
     if spec.buffer is not None and not registry.contains("buffer",
                                                          spec.buffer):
         raise _not_ported(f"buffer {spec.buffer!r}")
-    staleness = spec.staleness
-    if isinstance(staleness, dict):
-        staleness = staleness.get("mode", "off")
-    if staleness not in (None, "off"):
-        raise _not_ported("staleness correction")
-    if spec.faults:
-        raise _not_ported("fault injection (process backend)")
     sched = spec.schedule
+    if spec.runtime == "async" and spec.backend not in ("threaded",
+                                                        "process"):
+        raise ValueError(
+            f"runtime 'async' runs free-running samplers: threads "
+            f"(backend='threaded') or worker processes collecting into "
+            f"the shared-memory ring (backend='process'); got "
+            f"{spec.backend!r}")
+    if (StalenessConfig.parse(spec.staleness).enabled
+            and spec.runtime != "async"):
+        raise ValueError(
+            f"staleness correction reweights samples by the params-version "
+            f"gap the async runtime stamps onto experience; under "
+            f"runtime={spec.runtime!r} that gap is identically zero: use "
+            f"runtime='async' or staleness='off'")
+    if spec.faults and spec.backend != "process":
+        raise ValueError(
+            f"fault injection kills and hangs worker processes; backend "
+            f"must be 'process' (got {spec.backend!r})")
+    if ((sched.min_workers is not None or sched.max_workers is not None)
+            and not (spec.runtime == "async"
+                     and spec.backend == "process")):
+        raise ValueError(
+            "elastic sizing (schedule.min_workers/max_workers) grows and "
+            "shrinks a free-running worker-process fleet; it requires "
+            "runtime='async' with backend='process'")
+    if sched.env_batch is not None and spec.backend == "process":
+        raise ValueError(
+            "schedule.env_batch selects vector collection (one VectorEnv "
+            "batch, a single carry); the process backend splits the batch "
+            "across workers: use num_samplers × global_batch for it")
     if int(sched.learner_devices or 1) > 1 or sched.learner_microbatches > 1:
         raise _not_ported("the sharded learner (learner_devices / "
                           "learner_microbatches)")
@@ -159,8 +206,6 @@ def _validate(spec: ExperimentSpec) -> None:
         raise _not_ported("fsdp / learner_pods")
     if sched.overlap:
         raise _not_ported("the overlap schedule")
-    if sched.min_workers is not None or sched.max_workers is not None:
-        raise _not_ported("elastic worker fleets")
 
 
 def _resolve_buffer(spec: ExperimentSpec, algo):
@@ -192,14 +237,16 @@ def _resolve_buffer(spec: ExperimentSpec, algo):
     return buffer
 
 
-def build(spec: ExperimentSpec, device=None) -> SyncRunner:
-    """Resolve a spec into a runner on ``device`` (without driving it).
+def build(spec: ExperimentSpec, device=None):
+    """Resolve a spec into a runner on ``device`` (without driving it): a
+    ``SyncRunner``, or an ``AsyncOrchestrator`` under ``runtime="async"``.
 
     Params are drawn from a CPU generator seeded ``seed`` (so a seed gives
     the same weights on every device); sampler i's carry from a generator
-    on ``device`` seeded ``seed + i``, or one carry seeded ``seed`` for
-    ``env_batch`` collection, as the reference derives its keys; the
-    plane's generator on ``device`` seeded ``seed + _PLANE_SEED_TAG``.
+    on ``device`` seeded ``seed + i`` (in worker i's process for the process
+    backend), or one carry seeded ``seed`` for ``env_batch`` collection, as
+    the reference derives its keys; the plane's generator on ``device``
+    seeded ``seed + _PLANE_SEED_TAG``.
     """
     _validate(spec)
     device = resolve_device(device)
@@ -210,35 +257,105 @@ def build(spec: ExperimentSpec, device=None) -> SyncRunner:
     vector = sched.env_batch is not None
     if vector:
         env = VectorEnv(env, sched.env_batch)
-    algo = registry.make("algo", spec.algo,
-                         **{**dict(spec.model), **dict(spec.algo_kwargs)})
+    algo_kwargs = {**dict(spec.model), **dict(spec.algo_kwargs)}
+    algo = registry.make("algo", spec.algo, **algo_kwargs)
+    # before the buffer and the train step: the transition schema and the
+    # learner both follow algo.staleness
+    stale_cfg = StalenessConfig.parse(spec.staleness)
+    algo.enable_staleness(stale_cfg)
     buffer = _resolve_buffer(spec, algo)
     kernels_mod.set_kernel_mode(spec.kernels)
     params, opt_state = algo.init(
         torch.Generator().manual_seed(sched.seed), env, device)
-    rollout = algo.make_rollout(env, sched.horizon)
-    if vector:
-        seeds, per = [sched.seed], env.batch
-    else:
-        per = sampler_mod.split_batch(sched.global_batch, sched.num_samplers)
-        seeds = [sched.seed + i for i in range(sched.num_samplers)]
-    carries = [sampler_mod.init_env_carry(env, s, per, device)
-               for s in seeds]
-    backend = registry.make("backend", spec.backend, rollout=rollout,
-                            carries=carries)
+    train_step = make_train_step(algo, buffer)
     example = (algo.transition_example(env, device)
                if buffer.kind == "transitions" else None)
     plane_generator = torch.Generator(device=device)
     plane_generator.manual_seed(sched.seed + _PLANE_SEED_TAG)
-    return SyncRunner(backend, make_train_step(algo, buffer), params,
-                      opt_state,
-                      plane_state=(buffer.init(example), plane_generator))
+    plane_state = (buffer.init(example), plane_generator)
+    async_kwargs = dict(staleness=stale_cfg,
+                        min_batches_per_update=sched.min_batches_per_update)
+    if vector:
+        seeds, per = [sched.seed], env.batch
+    else:
+        # process backend: the worker count may be set apart
+        # (schedule.num_workers); worker i takes sampler i's seed
+        n = sched.num_samplers
+        if spec.backend == "process":
+            n = sched.num_workers or sched.num_samplers
+        per = sampler_mod.split_batch(sched.global_batch, n)
+        seeds = [sched.seed + i for i in range(n)]
+    if spec.backend == "process":
+        return _build_process(spec, device, seeds, per, algo_kwargs,
+                              train_step, params, opt_state, plane_state,
+                              async_kwargs)
+    rollout = algo.make_rollout(env, sched.horizon)
+    carries = [sampler_mod.init_env_carry(env, s, per, device)
+               for s in seeds]
+    if spec.runtime == "async":
+        return AsyncOrchestrator(train_step, params, opt_state, plane_state,
+                                 rollout=rollout, carries=carries,
+                                 **async_kwargs)
+    backend = registry.make("backend", spec.backend, rollout=rollout,
+                            carries=carries)
+    return SyncRunner(backend, train_step, params, opt_state,
+                      plane_state=plane_state)
+
+
+def _build_process(spec: ExperimentSpec, device, seeds, per: int,
+                   algo_kwargs, train_step, params, opt_state, plane_state,
+                   async_kwargs):
+    """The process backend's runner: one ``WorkerSpec`` per worker up to
+    ``max_workers`` (the elastic headroom: slots and specs are provisioned
+    up front, only ``len(seeds)`` workers start), supervised unless
+    ``max_respawns`` is 0. Lock-step under ``sync``; under ``async`` the
+    workers free-run into two ring slots each (one being drained, one
+    being filled)."""
+    from repro_torch.core.backends import build_worker_pool
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.supervisor import SupervisorConfig, WorkerSupervisor
+    sched = spec.schedule
+    n = len(seeds)
+    min_w = sched.min_workers if sched.min_workers is not None else 1
+    max_w = sched.max_workers if sched.max_workers is not None else n
+    if not 1 <= min_w <= n <= max_w:
+        raise ValueError(
+            f"elastic bounds must satisfy 1 <= min_workers({min_w}) "
+            f"<= num_workers({n}) <= max_workers({max_w})")
+    sup_cfg = SupervisorConfig(max_respawns=sched.max_respawns,
+                               min_workers=sched.min_workers,
+                               max_workers=sched.max_workers)
+    worker_specs = [
+        sampler_mod.WorkerSpec(
+            env=spec.env, algo=spec.algo, horizon=sched.horizon, batch=per,
+            seed=sched.seed + i, kernels=spec.kernels,
+            env_kwargs=dict(spec.env_kwargs), algo_kwargs=algo_kwargs,
+            device=str(device))
+        for i in range(max_w)]
+    fault_plan = FaultPlan.parse(spec.faults, seed=sched.seed)
+    if spec.runtime == "async":
+        pool = build_worker_pool(worker_specs=worker_specs, params=params,
+                                 slots_per_worker=2,
+                                 active_workers=list(range(n)),
+                                 fault_plan=fault_plan)
+        supervisor = (WorkerSupervisor(pool, sup_cfg)
+                      if sup_cfg.max_respawns > 0 or sup_cfg.elastic
+                      else None)
+        return AsyncOrchestrator(train_step, params, opt_state, plane_state,
+                                 pool=pool, device=device,
+                                 supervisor=supervisor, **async_kwargs)
+    backend = registry.make("backend", "process", worker_specs=worker_specs,
+                            params=params, device=device,
+                            fault_plan=fault_plan, supervisor_cfg=sup_cfg)
+    return SyncRunner(backend, train_step, params, opt_state,
+                      plane_state=plane_state)
 
 
 def run(spec: ExperimentSpec, iterations: Optional[int] = None,
         device=None) -> ExperimentResult:
     """Build the spec's runner on ``device`` and drive it; the runner is
-    closed in a ``finally``."""
+    closed in a ``finally`` (sampler threads, worker processes and shared
+    memory are released even when the run raises)."""
     runner = build(spec, device=device)
     try:
         logs = runner.run(iterations if iterations is not None

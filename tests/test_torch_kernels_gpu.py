@@ -941,3 +941,39 @@ def test_lm_kernels_vs_plain_paths_end_to_end(cuda, arch, prompt_len):
         if key != "pos":
             torch.testing.assert_close(runs["cuda"][1][key], want,
                                        atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_process_collect_on_cuda_equals_inline(cuda):
+    """Two rollout worker processes on the card (each its own CUDA
+    context, launching the cheetah kernel) collect what the inline backend
+    collects, bit for bit, over two sweeps; each worker reports its cuda
+    device and its cheetah launches."""
+    import dataclasses
+
+    from repro_torch import experiment
+    from repro_torch.experiment import ExperimentSpec, Schedule
+    spec = ExperimentSpec(env="cheetah", algo="ppo",
+                          env_kwargs={"max_episode_steps": 5},
+                          schedule=Schedule(num_samplers=2, global_batch=32,
+                                            horizon=12, seed=1))
+    inline = experiment.build(spec, device=cuda)
+    proc = experiment.build(dataclasses.replace(spec, backend="process"),
+                            device=cuda)
+    try:
+        for _ in range(2):
+            want, _ = inline.backend.collect(inline.params)
+            got, _ = proc.backend.collect(proc.params)
+            assert sorted(got) == sorted(want)
+            for k in want:
+                assert got[k].device.type == "cuda"
+                assert torch.equal(got[k], want[k]), k
+        info = proc.backend.pool.worker_launches
+        assert sorted(info) == [(0, 1), (1, 1)]
+        for i in info.values():
+            assert i["device"].startswith("cuda")
+            assert i["memory_reserved_mib"] > 0
+            assert i["launches"]["cheetah_step"] == 2 * 12
+    finally:
+        inline.close()
+        proc.close()

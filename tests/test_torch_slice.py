@@ -162,10 +162,15 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(runtime="fused"), dict(runtime="async"), dict(backend="process"),
-    dict(backend="threaded"), dict(backend="sharded"),
+    dict(runtime="fused"),
+    dict(runtime="async", backend="threaded",
+         schedule=Schedule(learner_devices=2)),
+    dict(backend="process", schedule=Schedule(learner_microbatches=2)),
+    dict(backend="threaded", schedule=Schedule(learner_pods=2)),
+    dict(backend="sharded"),
     dict(schedule=Schedule(fsdp=True)),
-    dict(staleness="decay"), dict(algo_kwargs={"aux_coef": 0.1}),
+    dict(runtime="async", backend="process", schedule=Schedule(fsdp=True)),
+    dict(algo_kwargs={"aux_coef": 0.1}),
     dict(schedule=Schedule(learner_devices=2)),
     dict(schedule=Schedule(overlap=True)),
 ])

@@ -88,7 +88,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    card's whole use (``torch.cuda.mem_get_info`` before and at its peak)
    and the wall seconds of every collect are printed; after each run no
    worker process is alive and no ``walle-<pid>-*`` block of the
-   script's own pools is left in /dev/shm;
+   script's own pools is left in /dev/shm. Then the fused runtime
+   (``runtime="fused"``: two eager iterations, a capture, then one
+   CUDA-graph replay per iteration): PPO cheetah, SAC cheetah prioritized
+   (2^20 slots, batch 256), DDPG pendulum uniform and TRPO cart-pole at
+   one carry of 160 envs × 125 steps (5 iterations: 3 replays), and PPO
+   cheetah at one 4,096-env batch × 128 steps (3 iterations), each bit for
+   bit equal to the stepped run from the same carry (weights, optimizer
+   state, env carry, replay ring and tree, mean returns), PPO and SAC also
+   with the plain versions captured (``kernels="ref"``) against the
+   kernels; each run's launches per replay are the wrapper calls its
+   capture recorded and equal the port's kernel nodes of the graph, read
+   back by name through the driver API, and its launch counts are its
+   eager iterations and replays times those (a replay adds them to the
+   counts; the capture's calls launch nothing and are not counted),
+   printed with the warm-up and capture seconds and the graph pool's MiB;
+   seconds per iteration replayed (chunks of 10) against
+   the stepped run, the inline sweep and the 10 processes above; and a
+   fused PPO pendulum run of 40 iterations (64 envs × 200 steps, the
+   reference learning check's learner, seed 3) whose best 3 of the last 6
+   mean returns must beat the first 4 by 30, printed as a ``{"fused":
+   ...}`` line;
 5. reference: small PPO, SAC prioritized, TRPO cart-pole and DDPG
    prioritized pendulum runs with the kernels, and the same runs with the
    plain versions (``kernels="ref"``), must end with the same weights bit
@@ -503,10 +523,29 @@ def graph_ms(fn, reps):
     return time_ms(graph.replay, 1) / reps
 
 
+def graph_kernel_nodes(graph):
+    """The kernel nodes of a CUDA graph kept after its capture
+    (``keep_graph=True``), read back through the driver API
+    (``cuGraphGetNodes``; copies and memsets are other node types), with
+    the driver library."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kind, kernels = ctypes.c_int(), []
+    for node in nodes:
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)) == 0
+        if kind.value == 0:                 # CU_GRAPH_NODE_TYPE_KERNEL
+            kernels.append(node)
+    return cu, kernels
+
+
 def kernels_per_call(fn):
     """The kernels one call of ``fn`` launches: the kernel nodes of a CUDA
-    graph that captured the call, read back through the driver API
-    (``cuGraphGetNodes``; copies and memsets are other node types)."""
+    graph that captured the call."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -515,19 +554,64 @@ def kernels_per_call(fn):
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
-    cu = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * n.value)()
-    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
-    kind, kernels = ctypes.c_int(), 0
-    for node in nodes:
-        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                     ctypes.byref(kind)) == 0
-        kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
+    kernels = len(graph_kernel_nodes(graph)[1])
     assert kernels > 0, "the captured call launched no kernel"
     return kernels
+
+
+class KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``cuda.h``."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_mem", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+# the kernels that start a call of each wrapper: a call launches exactly
+# one of them (a sum-tree update is the one-block walk, or a marking
+# kernel and then the subtree kernel; a decode call is a split and a
+# combine; a scan call may start with its chunk states)
+CALL_KERNELS = {
+    "pendulum_step": ("pendulum_step_kernel",),
+    "cartpole_step": ("cartpole_step_kernel",),
+    "cheetah_step": ("cheetah_step_kernel",),
+    "gae": ("gae_kernel",),
+    "discounted_returns": ("discounted_returns_kernel",),
+    "ring_insert": ("insert_rows",),
+    "ring_gather": ("gather_rows",),
+    "sumtree_find": ("find_kernel",),
+    "sumtree_update": ("walk_kernel", "mark_kernel"),
+    "flash_attention": ("flash_attention_tc", "flash_attention_kernel"),
+    "decode_attention": ("decode_split",),
+    "selective_scan": ("scan_kernel",),
+}
+
+
+def graph_kernel_calls(graph):
+    """The calls of each of the port's kernels that a kept CUDA graph
+    holds: its kernel nodes, named by their function (``cuFuncGetName``,
+    or ``cuKernelGetName`` for a node that holds a library kernel), matched
+    to ``CALL_KERNELS`` by the length-prefixed identifier of the mangled
+    name."""
+    cu, nodes = graph_kernel_nodes(graph)
+    calls = {}
+    for node in nodes:
+        p = KernelNodeParams()
+        rc = cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                              ctypes.byref(p))
+        assert rc == 0, f"cuGraphKernelNodeGetParams_v2: CUresult {rc}"
+        name = ctypes.c_char_p()
+        if p.func:
+            rc = cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(p.func))
+        else:
+            rc = cu.cuKernelGetName(ctypes.byref(name),
+                                    ctypes.c_void_p(p.kern))
+        assert rc == 0 and name.value, f"kernel node name: CUresult {rc}"
+        fn = name.value.decode()
+        for wrapper, starts in CALL_KERNELS.items():
+            if any(f"{len(k)}{k}" in fn for k in starts):
+                calls[wrapper] = calls.get(wrapper, 0) + 1
+    return calls
 
 
 def measure(kernel, shape, n, moved, fn, plain, reps, plain_reps,
@@ -1048,13 +1132,15 @@ def time_kernels():
     storage = ring_leaves(CAP, gen)
     batch = ring_leaves(n_rows, gen)
     start = CAP - 7000
+    # the head as the ring keeps it: a 0-dim int32 on the card
+    head = torch.full((), start, dtype=torch.int32, device="cuda")
     pos = (torch.arange(n_rows, device="cuda") + start) % CAP
     row_bytes = nbytes(*(v[:1] for v in storage.values()))
     timings["main", "ring_insert"] = measure(
         "ring_insert", f"N={n_rows} cap={CAP} leaves={n_leaves}", 0,
         2 * n_rows * row_bytes,
-        lambda: ring_ops.ring_insert(storage, batch, start, impl="cuda"),
-        lambda: ring_ops.ring_insert_ref(storage, batch, start), 50, 20,
+        lambda: ring_ops.ring_insert(storage, batch, head, impl="cuda"),
+        lambda: ring_ops.ring_insert_ref(storage, batch, head), 50, 20,
         library=lambda: [storage[k].index_copy_(0, pos, batch[k])
                          for k in storage])
     idx = torch.randint(0, 3 * n_rows, (B,), generator=gen, device="cuda",
@@ -1084,14 +1170,11 @@ def time_kernels():
              .to(torch.int32))):
         vals = torch.rand(upd_idx.shape[0], generator=gen, device="cuda")
         nodes = tree_path_nodes(upd_idx, CAP)
-        # the plain version picks the winners of duplicate indices with a
-        # boolean mask, which syncs with the host: no graph capture
         timings[label, "sumtree_update"] = measure(
             "sumtree_update", f"B={upd_idx.shape[0]} cap={CAP}", sum(nodes),
             nbytes(upd_idx, vals) + tree_update_bytes(upd_idx, CAP),
             lambda: tree_ops.sumtree_update_cuda(tree, upd_idx, vals),
-            lambda: tree_ops.sumtree_update_ref(tree, upd_idx, vals), 50, 10,
-            plain_graph=False)
+            lambda: tree_ops.sumtree_update_ref(tree, upd_idx, vals), 50, 10)
     time_lm_kernels(timings, gen)
     return timings
 
@@ -1325,6 +1408,8 @@ def actor_plane_runs(cli, counted, runs, check_logs, zero_counts,
     assert workers == zero_counts(cheetah_step=3 * n * h), workers
     assert runs[label] == zero_counts(cheetah_step=3 * n * h, gae=3), runs
     same_run(label, snapshot_run(label, cli.result, trajs), ppo_inline)
+    report[label]["s_per_iteration"] = [
+        w + lg["learn_time"] for w, lg in zip(trajs.walls, logs)][1:]
 
     # 2. 10 sampler threads, against the inline run
     label = "ppo cheetah N=10 threaded"
@@ -1406,6 +1491,180 @@ def actor_plane_runs(cli, counted, runs, check_logs, zero_counts,
     report[label]["recovery_s"] = sup.recovery_s
     return report
 
+
+
+def carried(result):
+    """The tensors a run carries from one iteration to the next: weights,
+    optimizer state, the env carry and the experience plane's buffer
+    state (a stepped run's single sampler carry, or the fused state)."""
+    from repro_torch.core.fused import state_tensors
+    runner = result.runner
+    carry = (runner.state.env_carry if hasattr(runner, "state")
+             else runner.backend.carries[0])
+    plane = runner.plane_state[0] if runner.plane_state else None
+    return [x.detach().clone() for x in state_tensors(
+        (result.params, runner.opt_state, carry, plane))]
+
+
+def same_carry(label, got, want):
+    """Two runs' ``carried`` tensors and mean returns bit for bit equal."""
+    (a, a_ret), (b, b_ret) = got, want
+    assert a_ret == b_ret, (label, a_ret, b_ret)
+    assert len(a) == len(b) > 0, label
+    assert all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(a, b)), f"{label}: carried tensors differ"
+    log(f"  {label}: {len(a)} carried tensors and {len(a_ret)} mean "
+        f"returns bit for bit equal")
+
+
+def fused_runs(counted, runs, check_logs, zero_counts, device, walls,
+               vector_run):
+    """Slice 10, the fused runtime (``runtime="fused"``, one CUDA-graph
+    replay per iteration after two eager iterations and a capture): PPO
+    cheetah at 160 envs × 125 steps, SAC cheetah prioritized (2^20 slots,
+    batch 256), DDPG pendulum uniform, TRPO cart-pole, each against the
+    stepped run from the same carry (sync, one sampler of 160), and PPO
+    cheetah at one 4,096-env batch against ``vector_run``: weights,
+    optimizer, env carry and plane bit for bit; PPO and SAC also with the
+    plain versions (``kernels="ref"``, captured too) against the kernels.
+    The 160-env runs take 5 iterations: 2 eager, a capture and 3 replays.
+    Each run's launches per replay are the calls the capture recorded and
+    also the port's kernel nodes of the graph, read back by name; its
+    kernel counts are (eager iterations + replays) × those. Then seconds per iteration replayed against the
+    stepped run, the inline sweep of 10 samplers and 10 processes
+    (``walls``: their iterations' collect wall + learn seconds), and a
+    fused PPO pendulum run of 40 iterations whose return must rise (the
+    best 3 of the last 6 above the first 4 by 30, the reference's
+    ``tests/test_system.py`` check). Returns the report."""
+    from repro_torch.experiment import ExperimentSpec, Schedule, build, run
+    n, per, h = MAIN_SAMPLERS
+    B = n * per
+    report = {"device": device, "graphs": {}}
+    big = {"capacity": 1_000_000, "batch_size": 256}
+    specs = {
+        "ppo cheetah": (ExperimentSpec(env="cheetah", algo="ppo"),
+                        {"cheetah_step": h, "gae": 1}),
+        "sac cheetah prioritized": (
+            ExperimentSpec(env="cheetah", algo="sac", buffer="prioritized",
+                           buffer_kwargs=big),
+            {"cheetah_step": h, "ring_insert": 1, "ring_gather": 4,
+             "sumtree_find": 4, "sumtree_update": 5}),
+        "ddpg pendulum uniform": (
+            ExperimentSpec(env="pendulum", algo="ddpg", buffer="uniform",
+                           buffer_kwargs=big),
+            {"pendulum_step": h, "ring_insert": 1, "ring_gather": 4}),
+        "trpo cartpole": (ExperimentSpec(env="cartpole", algo="trpo"),
+                          {"cartpole_step": h, "gae": 1}),
+    }
+    iters = 5
+    sched = Schedule(num_samplers=1, global_batch=B, horizon=h,
+                     iterations=iters)
+
+    def returns(res):
+        return [lg.mean_return for lg in res.logs]
+
+    def fused(label, spec, per_replay, iters, samples):
+        res = counted(label, lambda: run(spec))
+        check_logs(label, res.logs, iters, samples)
+        stats = res.runner.graph_stats
+        if spec.kernels == "ref":
+            per_replay = {}
+        nodes = graph_kernel_calls(res.runner.engine.graph)
+        assert stats["launches_per_replay"] == nodes == per_replay, (
+            label, stats, nodes)
+        assert runs[label] == zero_counts(
+            **{k: iters * v for k, v in per_replay.items()}), runs
+        log(f"main path [{label}]: launches per replay {per_replay} (the "
+            f"graph's kernel nodes agree), 2 eager iterations and "
+            f"{iters - 2} replays: "
+            f"{ {k: v for k, v in runs[label].items() if v} }; warm-up "
+            f"{stats['warmup_s']:.3f} s, capture {stats['capture_s']:.3f} "
+            f"s, graph pool {stats['pool_mib']:.1f} MiB")
+        report["graphs"][label] = {k: stats[k] for k in (
+            "warmup_s", "capture_s", "pool_mib", "launches_per_replay")}
+        return res
+
+    for name, (spec, per_replay) in specs.items():
+        spec = dataclasses.replace(spec, schedule=sched)
+        label = f"{name} N=1 B={B}"
+        stepped = counted(label, lambda: run(spec))
+        check_logs(label, stepped.logs, iters, B * h)
+        want = (carried(stepped), returns(stepped))
+        if name == "ppo cheetah":
+            report["stepped_s_per_iteration"] = [
+                lg.collect_time + lg.learn_time for lg in stepped.logs[1:]]
+        del stepped
+        label = f"fused {name} B={B}"
+        res = fused(label, dataclasses.replace(spec, runtime="fused"),
+                    per_replay, iters, B * h)
+        got = (carried(res), returns(res))
+        same_carry(f"{label} vs stepped", got, want)
+        del res
+        if name in ("ppo cheetah", "sac cheetah prioritized"):
+            label = f"fused {name} B={B} ref"
+            res = fused(label, dataclasses.replace(
+                spec, runtime="fused", kernels="ref"), per_replay, iters,
+                B * h)
+            same_carry(f"{label} vs cuda", (carried(res), returns(res)), got)
+            del res
+    label = "fused ppo cheetah vector B=4096"
+    res = fused(label, dataclasses.replace(vector_run.spec, runtime="fused"),
+                {"cheetah_step": 128, "gae": 1}, 3, 4096 * 128)
+    same_carry(f"{label} vs stepped", (carried(res), returns(res)),
+               (carried(vector_run), returns(vector_run)))
+    del res
+
+    # seconds per iteration: a chunk of 2 (the eager iterations and the
+    # capture), then chunks of 10 replays, one host sync each
+    label = f"fused ppo cheetah B={B} timing"
+    spec, per_replay = specs["ppo cheetah"]
+    runner = build(dataclasses.replace(spec, runtime="fused", schedule=sched))
+    first = counted(label, lambda: runner.run(2))[-1].learn_time
+    replayed = []
+    for _ in range(3):
+        runner.chunk = 10
+        replayed.append(runner.run(10)[-1].learn_time)
+    stats = runner.graph_stats
+    del runner
+    stepped_s = report.pop("stepped_s_per_iteration")
+    report["ppo_cheetah_160x125"] = {
+        "samples_per_iteration": B * h,
+        "stepped_s_per_iteration": stepped_s,
+        "fused_first_chunk_s_per_iteration": first,
+        "fused_replay_s_per_iteration": replayed,
+        "warmup_s": stats["warmup_s"], "capture_s": stats["capture_s"],
+        "pool_mib": stats["pool_mib"], **walls}
+    log(f"  fused vs stepped, PPO cheetah {B} x {h} ({B * h:,} samples), "
+        f"{device}: s per iteration fused (replayed, chunks of 10) "
+        f"{[round(x, 4) for x in replayed]}, first chunk of 2 (eager "
+        f"iterations and capture) {first:.4f}; stepped at {B} envs "
+        f"{[round(x, 4) for x in stepped_s]}; "
+        f"collect wall + learn, inline N=10 "
+        f"{[round(x, 4) for x in walls['inline_n10_s_per_iteration']]}, "
+        f"10 processes "
+        f"{[round(x, 4) for x in walls['process_n10_s_per_iteration']]}")
+
+    # learning: PPO pendulum with the reference check's learner
+    label = "fused ppo pendulum learning"
+    iters = 40
+    res = fused(label, ExperimentSpec(
+        env="pendulum", algo="ppo", runtime="fused", model={"hidden": 32},
+        algo_kwargs={"lr": 1e-3, "epochs": 2, "minibatches": 2},
+        schedule=Schedule(global_batch=64, horizon=200, iterations=iters,
+                          chunk=10, seed=3)),
+        {"pendulum_step": 200, "gae": 1}, iters, 64 * 200)
+    rets = returns(res)
+    early = sum(rets[:4]) / 4
+    late = sum(sorted(rets[-6:])[-3:]) / 3
+    log(f"  {label}: mean return of the first 4 iterations {early:.2f}, "
+        f"best 3 of the last 6 {late:.2f}, "
+        f"{res.logs[-1].learn_time:.4f} s per iteration replayed")
+    assert late > early + 30.0, (label, early, late)
+    report["pendulum_learning"] = {
+        "iterations": iters, "first_4_mean": early,
+        "best_3_of_last_6": late, "returns": rets,
+        "s_per_iteration_replayed": res.logs[-1].learn_time}
+    return report
 
 
 def main(argv=None) -> int:
@@ -1619,15 +1878,16 @@ def main(argv=None) -> int:
              "--horizon", str(h), "--iterations", "3"]))
     ppo_inline = snapshot_run("cheetah N=10", cli.result, trajs)
     check_logs("cheetah N=10", logs, 3, n * per * h)
+    inline_s = [w + lg["learn_time"] for w, lg in zip(trajs.walls, logs)][1:]
     assert runs["cheetah N=10"] == zero_counts(cheetah_step=3 * n * h,
                                                gae=3)
 
     vec = counted("cheetah vector B=4096", lambda: run(ExperimentSpec(
         env="cheetah", algo="ppo", schedule=Schedule(
-            env_batch=4096, horizon=128, iterations=2))))
-    check_logs("cheetah vector", vec.logs, 2, 4096 * 128)
+            env_batch=4096, horizon=128, iterations=3))))
+    check_logs("cheetah vector", vec.logs, 3, 4096 * 128)
     assert runs["cheetah vector B=4096"] == zero_counts(
-        cheetah_step=2 * 128, gae=2)
+        cheetah_step=3 * 128, gae=3)
 
     pend = counted("pendulum N=10", lambda: run(ExperimentSpec(
         env="pendulum", algo="ppo", schedule=Schedule(
@@ -1655,13 +1915,13 @@ def main(argv=None) -> int:
         ring_gather=3 * updates, sumtree_find=3 * updates,
         sumtree_update=3 * (1 + updates)), runs
     ring, tree, max_p = cli.result.runner.plane_state[0]
-    assert tree.capacity == CAP and ring.size == 3 * n * per * h
-    assert int((tree.levels[0] > 0).sum()) == ring.size
+    assert tree.capacity == CAP and int(ring.size) == 3 * n * per * h
+    assert int((tree.levels[0] > 0).sum()) == int(ring.size)
     total = float(tree.total)
     assert math.isclose(total, float(tree.levels[0].double().sum()),
                         rel_tol=1e-4), total
     assert math.isfinite(float(max_p)) and float(max_p) >= 1.0
-    log(f"  sac prioritized: ring {ring.size} of {CAP}, tree total "
+    log(f"  sac prioritized: ring {int(ring.size)} of {CAP}, tree total "
         f"{total:.6g}, max priority {float(max_p):.6g}")
     sac_runs = [cli.result]
 
@@ -1728,19 +1988,28 @@ def main(argv=None) -> int:
         ring_gather=3 * updates, sumtree_find=3 * updates,
         sumtree_update=3 * (1 + updates)), runs
     ring, tree, max_p = cli.result.runner.plane_state[0]
-    assert tree.capacity == CAP and ring.size == 3 * n * per * h
-    assert int((tree.levels[0] > 0).sum()) == ring.size
+    assert tree.capacity == CAP and int(ring.size) == 3 * n * per * h
+    assert int((tree.levels[0] > 0).sum()) == int(ring.size)
     assert math.isclose(float(tree.total),
                         float(tree.levels[0].double().sum()), rel_tol=1e-4)
     assert math.isfinite(float(max_p)) and float(max_p) >= 1.0
     finite_params(label)
-    log(f"  ddpg prioritized: ring {ring.size} of {CAP}, tree total "
+    log(f"  ddpg prioritized: ring {int(ring.size)} of {CAP}, tree total "
         f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
 
     # slice 9: the actor plane
     actor_report = actor_plane_runs(cli, counted, runs, check_logs,
                                     zero_counts, ppo_inline, sac_inline)
     del ppo_inline, sac_inline
+
+    # slice 10: the fused runtime
+    fused_report = fused_runs(
+        counted, runs, check_logs, zero_counts, smi,
+        {"inline_n10_s_per_iteration": inline_s,
+         "process_n10_s_per_iteration":
+             actor_report["ppo cheetah N=10 process"]["s_per_iteration"]},
+        vec)
+    del vec
 
     # slice 4: LM serving, hymba-1.5b and falcon-mamba-7b
     run_a = lm_serve_runs(counted, runs, zero_counts)
@@ -1805,6 +2074,7 @@ def main(argv=None) -> int:
     log_timings(timings, TIMING_LINES)
     log(json.dumps({"lm_cuda_vs_ref": lm_report}))
     log(json.dumps({"actor_plane": actor_report}))
+    log(json.dumps({"fused": fused_report}))
     log(json.dumps({"launches_by_run": runs}))
     print(json.dumps({"kernels": entries}), flush=True)
     print_ok()

@@ -171,9 +171,10 @@ def make_train_step(algo, buffer) -> Callable:
     return step
 
 
-class GaussianMLPAlgorithm(AlgorithmBase):
+class GaussianMLPAlgorithm(sampler_mod.MLPPolicyHooks, AlgorithmBase):
     """Hooks shared by algorithms on the paper's Gaussian-MLP policy and
-    value model: the params are one ``MLPPolicy`` module."""
+    value model: the params are one ``MLPPolicy`` module, acted with as
+    the reference's ``make_env_rollout`` does (``MLPPolicyHooks``)."""
 
     hidden: int = 64
     tail_keys = ("last_value",)
@@ -181,13 +182,6 @@ class GaussianMLPAlgorithm(AlgorithmBase):
     def _init_policy(self, generator, env, device):
         return mlp_policy.init_policy(generator, env.obs_dim, env.act_dim,
                                       hidden=self.hidden).to(device)
-
-    def act(self, params, obs, noise):
-        action, logp = params.sample_action(obs, noise)
-        return action, {"logp": logp, "values": params.value(obs)}
-
-    def rollout_tail(self, params, final_obs):
-        return {"last_value": params.value(final_obs)}
 
 
 class PPOAlgorithm(GaussianMLPAlgorithm):

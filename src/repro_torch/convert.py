@@ -77,7 +77,8 @@ def _adam(state, flatten: Callable, device) -> AdamState:
         return [torch.from_numpy(np.array(x, np.float32)).to(device)
                 for x in flatten(tree)]
 
-    return AdamState(int(np.asarray(step)), moments(mu), moments(nu))
+    return AdamState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                  device=device), moments(mu), moments(nu))
 
 
 # ------------------------------------------------------------------ PPO
@@ -167,7 +168,7 @@ def sac_adam_states_to_jax(states) -> Tuple[Tuple[int, Any, Any], ...]:
 
     mus = trees([_numpy(s.mu) for s in states])
     nus = trees([_numpy(s.nu) for s in states])
-    return tuple((s.step, m, n) for s, m, n in zip(states, mus, nus))
+    return tuple((int(s.step), m, n) for s, m, n in zip(states, mus, nus))
 
 
 # ----------------------------------------------------------------- DDPG
@@ -202,7 +203,8 @@ def ddpg_adam_states_from_jax(states, device="cpu") -> Tuple[AdamState, ...]:
 def ddpg_adam_states_to_jax(states) -> Tuple[Tuple[int, Any, Any], ...]:
     """The port's two DDPG Adam states -> ``(step, mu, nu)`` triples shaped
     like the reference's actor and critic layer lists (numpy leaves)."""
-    return tuple((s.step, _net_tree(_numpy(s.mu)), _net_tree(_numpy(s.nu)))
+    return tuple((int(s.step), _net_tree(_numpy(s.mu)),
+                  _net_tree(_numpy(s.nu)))
                  for s in states)
 
 

@@ -1,6 +1,10 @@
 """Rollout samplers, WALL-E's N parallel sampler processors (port of the
 env sampler and ``WorkerSpec`` of ``repro/core/sampler.py``).
 
+``make_algo_rollout`` acts through an algorithm's hooks; ``make_env_rollout``
+is the reference's PPO-family rollout, the same loop acting through
+``MLPPolicyHooks`` (the Gaussian-MLP policy's sample and value).
+
 One sampler sweeps a batched env ``horizon`` steps under the current policy.
 The reference's ``lax.scan`` becomes a Python loop and its per-instance
 ``vmap`` a written-out batch dimension. Each sampler's carry holds its own
@@ -95,6 +99,34 @@ def make_algo_rollout(algo, env, horizon: int) -> Callable:
         return (env_state, obs, generator), traj
 
     return rollout
+
+
+class MLPPolicyHooks:
+    """The acting hooks of the paper's Gaussian-MLP policy (an
+    ``MLPPolicy`` as params): the reference's ``make_env_rollout`` body
+    samples ``mean + std * noise`` and records its logp and the value, then
+    bootstraps ``last_value`` from the final obs. The PPO and TRPO
+    algorithms act through these hooks too."""
+
+    needs_next_obs = False
+
+    @staticmethod
+    def act(params, obs, noise):
+        action, logp = params.sample_action(obs, noise)
+        return action, {"logp": logp, "values": params.value(obs)}
+
+    @staticmethod
+    def rollout_tail(params, final_obs):
+        return {"last_value": params.value(final_obs)}
+
+
+def make_env_rollout(env, horizon: int) -> Callable:
+    """``rollout(params, carry) -> (carry', traj)`` of the Gaussian-MLP
+    policy ``params`` (the reference's ``make_env_rollout``): traj holds
+    ``obs``, ``actions``, ``rewards``, ``dones``, ``logp`` and ``values``
+    ``(T, B, ...)`` and ``last_value`` ``(B,)``. Its step body is
+    ``make_rollout_step(MLPPolicyHooks, ...)``."""
+    return make_algo_rollout(MLPPolicyHooks, env, horizon)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,9 +14,12 @@ per experiment by ``ExperimentSpec.buffer`` / ``buffer_kwargs``:
   ``update_priorities``.
 
 Buffer state lives on the device and is updated in place (ring storage,
-tree). ``sample`` draws from a ``torch.Generator``; ``UniformBuffer.gather``
-and ``PrioritizedBuffer.sample_with`` take the draws themselves, which
-tests inject. Sampling an empty buffer raises (``replay.ensure_nonempty``).
+tree); the ring's head and size are 0-dim device tensors, so ``add`` and
+``sample`` read nothing on the host and a CUDA graph can capture them (the
+fused engine, ``core/fused.py``). ``sample`` draws from a
+``torch.Generator``; ``UniformBuffer.gather`` and
+``PrioritizedBuffer.sample_with`` take the draws themselves, which tests
+inject. Sampling an empty buffer raises (``replay.ensure_nonempty``).
 """
 from __future__ import annotations
 
@@ -205,11 +208,15 @@ class PrioritizedBuffer:
         # divide by a tensor: ATen turns a division by a Python scalar into
         # a reciprocal multiply on the card, which rounds differently
         u = ((torch.arange(B, dtype=torch.float32, device=uniforms.device)
-              + uniforms) / torch.tensor(float(B), device=uniforms.device))
+              + uniforms) / torch.full((), float(B),
+                                       device=uniforms.device))
         idx = sumtree_find_batch(state.tree, u * total)
-        idx = torch.clamp(idx, max=state.ring.size - 1)
+        # the ring's size stays on the device: no host read, so a CUDA
+        # graph can capture the draw
+        size = state.ring.size
+        idx = torch.minimum(idx, size - 1)
         probs = state.tree.levels[0][idx] / torch.clamp(total, min=self.eps)
-        weights = (float(state.ring.size)
+        weights = (size.to(torch.float32)
                    * torch.clamp(probs, min=self.eps)) ** (-self.beta)
         batch = ring_gather(state.ring.storage, idx)
         batch["indices"] = idx

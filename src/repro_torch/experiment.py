@@ -10,8 +10,8 @@ the other. The device is an argument of ``build``/``run``, not a spec field:
 it defaults to ``cuda`` and, with no CUDA device, raises rather than run on
 the CPU unasked.
 
-Ported so far: runtimes ``sync`` and ``async``, backends ``inline``,
-``threaded`` and ``process``, algos ``ppo``, ``trpo``, ``ddpg`` and
+Ported so far: runtimes ``sync``, ``async`` and ``fused``, backends
+``inline``, ``threaded`` and ``process``, algos ``ppo``, ``trpo``, ``ddpg`` and
 ``sac``, buffers ``fifo``, ``uniform`` and ``prioritized`` (with
 ``buffer_kwargs``), envs ``pendulum``, ``cartpole`` and ``cheetah``, with
 ``num_samplers × global_batch`` or ``env_batch`` collection; staleness
@@ -26,6 +26,12 @@ default; worker i takes sampler i's seed, so ``process == inline`` bit for
 bit. With ``runtime="async"`` the samplers free-run (threads, or the
 workers into the shared ring, two slots each) while the learner drains
 them.
+
+The fused runtime (``core/fused.py``) collects with one carry of
+``global_batch`` envs (or ``env_batch``) seeded ``seed``, as the reference
+does, and runs each collect -> learn iteration as one CUDA-graph replay on
+the card (eagerly on the CPU), ``schedule.chunk`` iterations between host
+syncs; its backend must be ``inline``.
 
 The runner owns the plane state ``(buffer_state, generator)``. The
 generator lives on the device and is seeded from ``schedule.seed`` with its
@@ -51,6 +57,7 @@ from repro_torch import registry
 from repro_torch.algos.api import make_train_step
 from repro_torch.core import sampler as sampler_mod
 from repro_torch.algos.staleness import StalenessConfig
+from repro_torch.core.fused import FusedRunner
 from repro_torch.core.orchestrator import (
     AsyncOrchestrator,
     IterationLog,
@@ -58,7 +65,7 @@ from repro_torch.core.orchestrator import (
 )
 from repro_torch.envs.vector import VectorEnv
 
-RUNTIMES = ("sync", "async")
+RUNTIMES = ("sync", "async", "fused")
 
 # added to the seed of the plane's generator, so that it never equals the
 # params generator's seed or a sampler's (seed + i)
@@ -169,6 +176,10 @@ def _validate(spec: ExperimentSpec) -> None:
                                                          spec.buffer):
         raise _not_ported(f"buffer {spec.buffer!r}")
     sched = spec.schedule
+    if spec.runtime == "fused" and spec.backend != "inline":
+        raise ValueError(
+            f"runtime 'fused' fuses collection into the train loop; "
+            f"backend must be 'inline' (got {spec.backend!r})")
     if spec.runtime == "async" and spec.backend not in ("threaded",
                                                         "process"):
         raise ValueError(
@@ -239,14 +250,15 @@ def _resolve_buffer(spec: ExperimentSpec, algo):
 
 def build(spec: ExperimentSpec, device=None):
     """Resolve a spec into a runner on ``device`` (without driving it): a
-    ``SyncRunner``, or an ``AsyncOrchestrator`` under ``runtime="async"``.
+    ``SyncRunner``, an ``AsyncOrchestrator`` under ``runtime="async"``, or
+    a ``FusedRunner`` under ``runtime="fused"``.
 
     Params are drawn from a CPU generator seeded ``seed`` (so a seed gives
     the same weights on every device); sampler i's carry from a generator
     on ``device`` seeded ``seed + i`` (in worker i's process for the process
-    backend), or one carry seeded ``seed`` for ``env_batch`` collection, as
-    the reference derives its keys; the plane's generator on ``device``
-    seeded ``seed + _PLANE_SEED_TAG``.
+    backend), or one carry seeded ``seed`` for ``env_batch`` collection and
+    for the fused runtime, as the reference derives its keys; the plane's
+    generator on ``device`` seeded ``seed + _PLANE_SEED_TAG``.
     """
     _validate(spec)
     device = resolve_device(device)
@@ -275,6 +287,16 @@ def build(spec: ExperimentSpec, device=None):
     plane_state = (buffer.init(example), plane_generator)
     async_kwargs = dict(staleness=stale_cfg,
                         min_batches_per_update=sched.min_batches_per_update)
+    if spec.runtime == "fused":
+        # one carry of the whole batch, seeded ``seed``, as the reference's
+        # fused runner collects
+        carry = sampler_mod.init_env_carry(
+            env, sched.seed, env.batch if vector else sched.global_batch,
+            device)
+        return FusedRunner(env, None, params, opt_state, carry,
+                           horizon=sched.horizon, chunk=sched.chunk,
+                           rollout=algo.make_rollout(env, sched.horizon),
+                           train_step=train_step, plane_state=plane_state)
     if vector:
         seeds, per = [sched.seed], env.batch
     else:

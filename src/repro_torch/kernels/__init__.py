@@ -61,3 +61,11 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` (kernel name -> launches) to the wrappers' counts: a
+    CUDA-graph replay launches the kernels its capture recorded without
+    calling a wrapper (``core/fused.py``)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n

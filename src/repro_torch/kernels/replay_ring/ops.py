@@ -11,13 +11,16 @@ HBM bytes: each copied row read once and written once. At the main path's
 shapes a launch per leaf cost more than the bytes, so each op is one host
 call and one launch for all the leaves of a storage dict (at most
 ``MAX_LEAVES``), its table passed by value: both ops can be captured in a
-CUDA graph. An insert is a copy of at most two contiguous byte segments per
-leaf (``insert_segments``); a gather reads each row's index once and writes
-every leaf's rows into one byte buffer (``gather_layout``), returned as
-per-leaf views. The plans are pure Python, and a storage dict is checked
-once per distinct set of leaves. ``ring_insert_cuda.launches`` and
-``ring_gather_cuda.launches`` count launches, one per op call that copies
-anything.
+CUDA graph. An insert copies one contiguous span of rows per leaf
+(``insert_spans``) into the ring from the head ``start``, which may be a
+0-dim tensor on the device: the kernel reads it there and does the wrap
+itself, so a ring whose head lives on the device is written without a
+host read. A gather reads each
+row's index once and writes every leaf's rows into one byte buffer
+(``gather_layout``), returned as per-leaf views. The plans are pure Python,
+and a storage dict is checked once per distinct set of leaves.
+``ring_insert_cuda.launches`` and ``ring_gather_cuda.launches`` count
+launches, one per op call that copies anything.
 
 ``ring_insert`` writes into ``storage`` in place and returns it (the TPU
 kernel aliases storage to its output; the reference returns a new dict).
@@ -27,7 +30,7 @@ from __future__ import annotations
 import array
 import ctypes
 import functools
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -45,32 +48,26 @@ _L = ctypes.c_longlong
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("replay_ring")
-    lib.ring_insert.argtypes = [_P, ctypes.c_int, _P]
+    lib.ring_insert.argtypes = [_P, ctypes.c_int, _P, _L, _L, _P]
     lib.ring_insert.restype = ctypes.c_int
     lib.ring_gather.argtypes = [_P, ctypes.c_int, _P, _P, _L, _L, _P]
     lib.ring_gather.restype = ctypes.c_int
     return lib
 
 
-def insert_segments(row_bytes: Sequence[int], cap: int, n: int, start: int
-                    ) -> List[Tuple[int, int, int, int]]:
-    """The byte segments ``(leaf, src_offset, dst_offset, nbytes)`` of an
-    insert of ``n`` rows at ``start`` into leaves of ``cap`` rows of
-    ``row_bytes`` each: batch row j goes to slot ``(start + j) % cap``, and
-    when ``n > cap`` only the rows ``j >= n - cap`` (the last writes) are
-    copied. At most two per leaf, none for a leaf of zero-width rows."""
+def insert_spans(row_bytes: Sequence[int], cap: int, n: int
+                 ) -> List[Tuple[int, int, int]]:
+    """The source span ``(leaf, src_offset, nbytes)`` of each leaf that an
+    insert of ``n`` rows into leaves of ``cap`` rows of ``row_bytes`` each
+    copies: the rows ``j >= n - cap`` (the last writes win when ``n >
+    cap``), none for a leaf of zero-width rows or an empty insert. Byte
+    ``o`` of a leaf's span lands at byte ``(head * rb + o) % (cap * rb)``
+    of that leaf, where ``head = (start + max(0, n - cap)) % cap`` is the
+    slot of the first copied row, which the kernel computes from the start
+    it reads."""
     first = max(0, n - cap)
-    head = (start + first) % cap
-    count = n - first
-    split = min(count, cap - head)
-    segments = []
-    for leaf, rb in enumerate(row_bytes):
-        if rb and split:
-            segments.append((leaf, first * rb, head * rb, split * rb))
-        if rb and count > split:
-            segments.append((leaf, (first + split) * rb, 0,
-                             (count - split) * rb))
-    return segments
+    return [(leaf, first * rb, (n - first) * rb)
+            for leaf, rb in enumerate(row_bytes) if rb and n > first]
 
 
 def gather_layout(row_bytes: Sequence[int], rows: int
@@ -184,13 +181,34 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
 
 
+Start = Union[int, torch.Tensor]
+
+
+def _start_on(start: Start, device: torch.device) -> torch.Tensor:
+    """The head as the 0-dim int32 on ``device`` that the insert kernel
+    reads (a replay ring's own head is one already): a host int is written
+    there by a fill, since a copy from the host could not be captured in a
+    CUDA graph."""
+    if not isinstance(start, torch.Tensor):
+        return torch.full((), int(start), dtype=torch.int32, device=device)
+    if (start.dim() != 0 or start.device != device
+            or start.dtype.is_floating_point or start.dtype == torch.bool):
+        raise ValueError(
+            f"ring_insert: start must be an int or a 0-dim integer tensor "
+            f"on {device}; got {start.dtype} {tuple(start.shape)} on "
+            f"{start.device}")
+    return start if start.dtype == torch.int32 else start.to(torch.int32)
+
+
 def ring_insert_cuda(storage: Dict[str, torch.Tensor],
-                     batch: Dict[str, torch.Tensor], start: int
+                     batch: Dict[str, torch.Tensor], start: Start
                      ) -> Dict[str, torch.Tensor]:
     """Launch the insert kernel once, for all the leaves: batch row j to
-    slot ``(start + j) % cap`` of each leaf of ``storage``, in place. Each
-    batch leaf (N, ...) has its storage leaf's dtype, trailing shape and
-    device and is contiguous, with one N for all."""
+    slot ``(start + j) % cap`` of each leaf of ``storage``, in place.
+    ``start`` is an int or a 0-dim integer tensor on the storage's device,
+    which the kernel reads there. Each batch leaf (N, ...) has its storage
+    leaf's dtype, trailing shape and device and is contiguous, with one N
+    for all."""
     leaves = _leaves("ring_insert", storage)
     index = leaves.device.index
     n = None
@@ -209,14 +227,18 @@ def ring_insert_cuda(storage: Dict[str, torch.Tensor],
                 f"N for all leaves; got {b.dtype} {tuple(b.shape)} on "
                 f"{b.device}")
         src.append(b.data_ptr())
-    segments = insert_segments(leaves.row_bytes, leaves.cap, n, int(start))
-    if not segments:
+    spans = insert_spans(leaves.row_bytes, leaves.cap, n)
+    if not spans:
         return storage
-    table = array.array("q", [x for leaf, s, d, nbytes in segments
-                              for x in (src[leaf] + s, leaves.ptrs[leaf] + d,
-                                        nbytes)])
-    _raise_on(_lib().ring_insert(table.buffer_info()[0], len(segments),
-                               stream.current(leaves.device)), "ring_insert")
+    start = _start_on(start, leaves.device)
+    table = array.array("q", [
+        x for leaf, off, nbytes in spans
+        for x in (src[leaf] + off, leaves.ptrs[leaf], nbytes,
+                  leaves.row_bytes[leaf])])
+    _raise_on(_lib().ring_insert(
+        table.buffer_info()[0], len(spans), start.data_ptr(),
+        max(0, n - leaves.cap), leaves.cap, stream.current(leaves.device)),
+        "ring_insert")
     ring_insert_cuda.launches += 1
     return storage
 
@@ -254,10 +276,11 @@ ring_gather_cuda.launches = 0
 
 
 def ring_insert(storage: Dict[str, torch.Tensor],
-                batch: Dict[str, torch.Tensor], start: int, *,
+                batch: Dict[str, torch.Tensor], start: Start, *,
                 impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
-    """Insert (N, ...) rows at the ring head ``start`` (wraps), in place;
-    returns ``storage``. Batch leaves are cast to the storage dtype."""
+    """Insert (N, ...) rows at the ring head ``start`` (an int or a 0-dim
+    integer tensor on the storage's device; wraps), in place; returns
+    ``storage``. Batch leaves are cast to the storage dtype."""
     if not select.use_kernel(impl, next(iter(storage.values()))):
         return ring_insert_ref(storage, batch, start)
     return ring_insert_cuda(storage, {

@@ -8,30 +8,36 @@ largest buffer of the plane) and returns it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import torch
 
 
 def ring_insert_ref(storage: Dict[str, torch.Tensor],
                     batch: Dict[str, torch.Tensor],
-                    start: int) -> Dict[str, torch.Tensor]:
+                    start: Union[int, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
     """Write (N, ...) rows at the ring head ``start`` (wrapping), in place.
 
     The reference scatters row j to ``(start + j) % cap`` in order, so when
     N > cap the last write to a slot wins. Duplicate indices in a PyTorch
     index assignment are undefined, so only rows ``j >= N - cap`` are
-    written: each slot once, with the row that wins in the reference. They
-    land in at most two contiguous runs of slots."""
-    cap = next(iter(storage.values())).shape[0]
+    written: each slot once, with the row that wins in the reference.
+    ``start`` may be a 0-dim integer tensor on the storage's device: the
+    slots are computed from it there, so nothing is read on the host."""
+    dst0 = next(iter(storage.values()))
+    cap, device = dst0.shape[0], dst0.device
     n = next(iter(batch.values())).shape[0]
     first = max(0, n - cap)
-    head = (start + first) % cap
-    split = min(n - first, cap - head)
+    if n == first:
+        return storage
+    start = (start.to(torch.int64) if isinstance(start, torch.Tensor)
+             else torch.full((), int(start), dtype=torch.int64,
+                             device=device))
+    slots = torch.remainder(
+        start + first + torch.arange(n - first, device=device), cap)
     for k, dst in storage.items():
-        rows = batch[k][first:].to(dst.dtype)
-        dst[head:head + split] = rows[:split]
-        dst[:rows.shape[0] - split] = rows[split:]
+        dst.index_copy_(0, slots, batch[k][first:].to(dst.dtype))
     return storage
 
 

@@ -126,24 +126,36 @@ def sumtree_update_ref(tree: SumTree, idx: torch.Tensor,
     As with the reference's jnp scatter, an index in ``[-cap, 0)`` counts
     from the end and one outside ``[-cap, cap)`` is dropped. That scatter
     is in order, so among duplicate indices the last write wins. A PyTorch
-    index assignment with duplicates is undefined, so the winners are
-    picked first: a stable sort by index, then the last of each run.
-    Parent writes need no such care: every write of a parent stores the
-    same sum."""
+    index assignment with duplicates is undefined unless the duplicates
+    carry one value, so every write of a slot carries its winner's value:
+    a stable sort by index, then the last of each run. Shapes never depend
+    on the data (no host read, so a CUDA graph can capture it): a dropped
+    index rewrites a slot that is written anyway, with the value it gets,
+    or leaf 0 with its own value when nothing is kept. Parent writes need
+    no such care: every write of a parent stores the same sum, and a
+    recomputed parent of an untouched path its old one."""
     cap = tree.capacity
     idx = idx.reshape(-1).to(torch.int64)
-    idx = torch.where(idx < 0, idx + cap, idx)
-    keep = (idx >= 0) & (idx < cap)
-    idx = idx[keep]
-    leaf_values = leaf_values.reshape(-1).to(torch.float32)[keep]
+    values = leaf_values.reshape(-1).to(torch.float32)
+    n = idx.shape[0]
+    if n == 0:
+        return tree
     levels = tree.levels
-    if idx.numel():
-        sorted_idx, order = torch.sort(idx, stable=True)
-        last = torch.ones_like(sorted_idx, dtype=torch.bool)
-        last[:-1] = sorted_idx[1:] != sorted_idx[:-1]
-        idx = sorted_idx[last]
-        levels[0][idx] = leaf_values[order[last]]
-    child = idx
+    idx = torch.where(idx < 0, idx + cap, idx)
+    kept = (idx >= 0) & (idx < cap)
+    key, order = torch.sort(torch.where(kept, idx, cap), stable=True)
+    last = torch.ones_like(key, dtype=torch.bool)
+    last[:-1] = key[1:] != key[:-1]
+    pos = torch.arange(n, device=key.device)
+    run_end = torch.flip(torch.cummin(torch.flip(
+        torch.where(last, pos, n), (0,)), 0).values, (0,))
+    winning = values[order[run_end]]
+    any_kept = key[0] < cap
+    spare_slot = torch.where(any_kept, key[0], 0)
+    spare_value = torch.where(any_kept, winning[0], levels[0][0])
+    slot = torch.where(key < cap, key, spare_slot)
+    levels[0][slot] = torch.where(key < cap, winning, spare_value)
+    child = slot
     for lo, hi in zip(levels[:-1], levels[1:]):
         parent = child // 2
         hi[parent] = lo[2 * parent] + lo[2 * parent + 1]

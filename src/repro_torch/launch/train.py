@@ -21,6 +21,14 @@ Usage:
       [--staleness {off,decay,vtrace} [--staleness-decay 0.9]] \
       [--inject-faults kill:0.2,torn:0.05] [--max-respawns 3] \
       [--min-workers 2 --max-workers 8] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
+      --algo {ppo,trpo,sac,ddpg} --backend fused --global-batch 160 \
+      --horizon 125 --iterations 40 [--chunk 10] [--device cpu]
+
+``--backend fused`` is the fused runtime: one carry of ``--global-batch``
+envs (or ``--env-batch``), each collect -> learn iteration one CUDA-graph
+replay on the card, ``--chunk`` iterations between host syncs (default:
+all of them).
 
 Algos: ``ppo`` and ``trpo`` (on-policy, the ``fifo`` buffer), ``sac`` and
 ``ddpg`` (replay, ``uniform`` or ``prioritized``). Envs: ``pendulum``,
@@ -80,6 +88,7 @@ def spec_from_args(args) -> ExperimentSpec:
             num_workers=args.num_workers,
             min_batches_per_update=args.min_batches_per_update,
             env_batch=args.env_batch,
+            chunk=args.chunk,
             max_respawns=args.max_respawns,
             min_workers=args.min_workers,
             max_workers=args.max_workers,
@@ -122,6 +131,9 @@ def main(argv=None) -> experiment.ExperimentResult:
                     help="collect with one B-instance VectorEnv batch "
                          "instead of the num-samplers × global-batch split")
     ap.add_argument("--horizon", type=int, default=128)
+    ap.add_argument("--chunk", type=int, default=None,
+                    help="fused runtime (--backend fused): iterations "
+                         "between host syncs (default: all of them)")
     ap.add_argument("--iterations", type=int, default=10)
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--lr", type=float, default=None)

@@ -4,18 +4,23 @@ The moments are plain lists in the order of the parameters; the update
 follows the reference's expression order (``adam.py`` ``update``), so one
 step from identical params and grads matches it to float32 rounding. Not
 ``torch.optim.Adam``, whose expression order differs.
+
+``AdamState.step`` is a 0-dim int32 tensor on the params' device, as the
+reference's is an array, and the bias corrections are computed from it on
+that device. So an update reads nothing on the host, and one captured in a
+CUDA graph (``core/fused.py``) computes what the eager one does, bit for
+bit.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, List, NamedTuple, Sequence, Tuple
 
-import numpy as np
 import torch
 
 
 class AdamState(NamedTuple):
-    step: int
+    step: torch.Tensor               # 0-dim int32, on the params' device
     mu: List[torch.Tensor]
     nu: List[torch.Tensor]
 
@@ -32,15 +37,18 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999,
     -> (updates, state')``."""
 
     def init(params):
-        return AdamState(0, [torch.zeros_like(p) for p in params],
-                         [torch.zeros_like(p) for p in params])
+        return AdamState(
+            torch.zeros((), dtype=torch.int32, device=params[0].device),
+            [torch.zeros_like(p) for p in params],
+            [torch.zeros_like(p) for p in params])
 
     def update(grads, state, params):
         step = state.step + 1
-        # the reference computes the bias corrections on float32 scalars
-        t = np.float32(step)
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** t)
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** t)
+        # float32 powers of the betas on the device, as the reference's
+        # ``b1 ** t``; dividing by these 0-dim tensors is a true division
+        t = step.to(torch.float32)
+        bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
+        bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
         updates, mu, nu = [], [], []
         for g, m, v in zip(grads, state.mu, state.nu):
             m2 = b1 * m + (1 - b1) * g

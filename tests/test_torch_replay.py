@@ -1,8 +1,8 @@
 """Replay-ring parity: the port's plain versions against the JAX refs
 (``impl="ref"``) at the cases of ``tests/test_kernel_plane.py``, exact.
 Inputs are made with numpy and handed to both sides. Also the port's
-``data/replay.py`` ring state: host-int head and size, the wrap, and the
-empty-ring guard.
+``data/replay.py`` ring state: head and size as 0-dim tensors on the
+storage's device, the wrap, and the empty-ring guard.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -103,7 +103,8 @@ def test_cpu_tensors_take_the_plain_version_in_cuda_mode():
 
 def test_add_batch_matches_jax_over_wraps():
     """Three adds into a ring of 7 (the last one wraps): storage, head and
-    size as the reference's, with head and size as host ints."""
+    size as the reference's, with head and size as 0-dim int32 tensors on
+    the storage's device, as the reference keeps them on its device."""
     rng = np.random.default_rng(3)
     example = {"obs": np.zeros((1, 3), np.float32),
                "rewards": np.zeros(1, np.float32)}
@@ -117,7 +118,10 @@ def test_add_batch_matches_jax_over_wraps():
                                        for k, v in batch.items()})
         ts = replay.add_batch(ts, _torch(batch))
         assert (ts.index, ts.size) == (int(js.index), int(js.size))
-        assert isinstance(ts.index, int) and isinstance(ts.size, int)
+        for x in (ts.index, ts.size):
+            assert isinstance(x, torch.Tensor) and x.dim() == 0
+            assert x.dtype == torch.int32 and x.device == ts.storage[
+                "obs"].device
         _assert_equal(ts.storage, js.storage)
 
 
@@ -129,6 +133,22 @@ def test_sample_indices_stay_in_the_filled_prefix():
     idx = replay.sample_indices(ts, torch.Generator().manual_seed(0), 1000)
     assert idx.dtype == torch.int32
     assert int(idx.min()) == 0 and int(idx.max()) == 4
+
+
+def test_empty_check_reads_the_host_flag_not_the_device():
+    """``filled`` follows the shapes added (an add of no rows leaves it
+    False), and the empty-ring check reads it alone: a size that cannot be
+    read on the host (the meta device) does not get in its way."""
+    ts = replay.init_replay(8, {"x": torch.zeros(1)})
+    assert ts.filled is False
+    ts = replay.add_batch(ts, {"x": torch.zeros(0)})
+    assert ts.filled is False and int(ts.size) == 0
+    with pytest.raises(ValueError, match="empty replay buffer"):
+        replay.ensure_nonempty(ts)
+    ts = replay.add_batch(ts, {"x": torch.ones(2)})
+    assert ts.filled is True and int(ts.size) == 2
+    replay.ensure_nonempty(ts._replace(
+        size=torch.zeros((), dtype=torch.int32, device="meta")))
 
 
 # ------------------------------------------------- the kernels' host plans
@@ -156,30 +176,38 @@ def _row_bytes(storage):
     (17, 5, 0), (17, 5, 15), (12, 12, 7), (8, 11, 3), (1, 1, 0), (1, 3, 0),
     (4096, 20000, 100)])
 def test_insert_segments_applied_as_byte_copies_match_plain(cap, n, start):
-    """The kernel's plan: at most two byte segments per leaf, which copied
-    byte for byte give exactly what ``ring_insert_ref`` writes."""
+    """The kernel's plan: one source span per leaf (``insert_spans``), byte
+    ``o`` of it copied to byte ``(head * rb + o) % (cap * rb)`` of its leaf
+    with the head the kernel computes from the start it reads, gives
+    exactly what ``ring_insert_ref`` writes, for a host start and for a
+    start held in a 0-dim tensor."""
     rng = np.random.default_rng(cap * 31 + n)
     storage = {k: _plan_leaf(rng, cap, s, d)
                for k, (s, d) in PLAN_LEAVES.items()}
     batch = {k: _plan_leaf(rng, n, s, d) for k, (s, d) in PLAN_LEAVES.items()}
     want = ring.ring_insert_ref({k: v.clone() for k, v in storage.items()},
                                 batch, start)
-    segments = ring.insert_segments(_row_bytes(storage), cap, n, start)
+    from_tensor = ring.ring_insert_ref(
+        {k: v.clone() for k, v in storage.items()}, batch,
+        torch.tensor(start, dtype=torch.int32))
+    row_bytes = _row_bytes(storage)
+    spans = ring.insert_spans(row_bytes, cap, n)
     names = list(storage)
-    for leaf in range(len(names)):
-        assert sum(s[0] == leaf for s in segments) <= 2
-    for leaf, src, dst, nbytes in segments:
-        k = names[leaf]
-        _bytes(storage[k])[dst:dst + nbytes] = _bytes(batch[k])[
-            src:src + nbytes]
+    assert [leaf for leaf, _, _ in spans] == list(range(len(names)))
+    head = (start + max(0, n - cap)) % cap
+    for leaf, src, nbytes in spans:
+        k, rb = names[leaf], row_bytes[leaf]
+        dst = (head * rb + torch.arange(nbytes)) % (cap * rb)
+        _bytes(storage[k])[dst] = _bytes(batch[k])[src:src + nbytes]
     for k in want:
         assert torch.equal(storage[k], want[k]), k
+        assert torch.equal(from_tensor[k], want[k]), k
 
 
 def test_insert_segments_skip_empty_inserts_and_zero_width_rows():
-    assert ring.insert_segments([4, 8], 16, 0, 3) == []
-    assert ring.insert_segments([0, 4], 16, 5, 14) == [
-        (1, 0, 56, 8), (1, 8, 0, 12)]
+    assert ring.insert_spans([4, 8], 16, 0) == []
+    assert ring.insert_spans([0, 4], 16, 5) == [(1, 0, 20)]
+    assert ring.insert_spans([4], 8, 11) == [(0, 12, 32)]
 
 
 @pytest.mark.parametrize("rows", [0, 1, 3, 256])

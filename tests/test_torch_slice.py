@@ -162,7 +162,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(runtime="fused"),
+    dict(runtime="fused", schedule=Schedule(overlap=True)),
     dict(runtime="async", backend="threaded",
          schedule=Schedule(learner_devices=2)),
     dict(backend="process", schedule=Schedule(learner_microbatches=2)),

@@ -108,7 +108,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
    fused PPO pendulum run of 40 iterations (64 envs × 200 steps, the
    reference learning check's learner, seed 3) whose best 3 of the last 6
    mean returns must beat the first 4 by 30, printed as a ``{"fused":
-   ...}`` line;
+   ...}`` line. Then the overlap schedule (``--overlap``: after two serial
+   iterations, collect k+1 runs while learn k does, with the params learn
+   k starts from): fused PPO cheetah at 160 envs × 125 steps, 10
+   iterations (2 serial, 8 pipelined: a collect graph and a learn graph
+   replayed on two streams), twice, with the plain versions
+   (``kernels="ref"``), on the sync runtime with one sampler and as a
+   serial loop written out with the stale params, all bit for bit, and 2
+   overlapped iterations against the serial fused run; staleness 0, 0, 0,
+   then 1, ``overlap_saved_s`` 0 on the serial iterations and the last;
+   each graph's kernel nodes (read by name) equal to its launches per
+   replay, the counts to each half's (eager iterations + replays) × those,
+   the two graphs' pools apart; seconds per pipelined iteration against
+   the serial fused replay on the same carry; fused SAC cheetah
+   prioritized (2^20 slots, batch 256), 6 iterations, against the sync
+   overlap; sync PPO cheetah N=10 through the train CLI with
+   ``--overlap``, inline and over 10 worker processes, bit for bit, with
+   collect wall and exposed learn against the serial runs above, printed
+   as an ``{"overlap": ...}`` line;
 5. reference: small PPO, SAC prioritized, TRPO cart-pole and DDPG
    prioritized pendulum runs with the kernels, and the same runs with the
    plain versions (``kernels="ref"``), must end with the same weights bit
@@ -153,8 +170,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``kernels_at_main_shapes`` (no checks, no launch counts): run from two
    checkouts in turn, it times two versions of the kernels on one card.
 
-The last line is ``{"ok": true, "device": {...}}``; it is printed only when
-every phase passed. Without a CUDA device the script exits non-zero at once.
+A ``{"phase_seconds": ...}`` line gives the wall seconds of each phase
+from the kernel checks on. The last line is ``{"ok": true, "device":
+{...}}``; it is printed only when every phase passed. Without a CUDA device the script exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -1203,15 +1221,16 @@ def log_timings(timings, labels):
 def recording(backend_cls):
     """While the block runs, keep a copy of every merged trajectory
     ``backend_cls.collect`` returns (``trajs``) and the wall seconds of
-    each call, publish, transport and device barrier included
-    (``walls``)."""
+    each call, publish, transport and the barrier of the collect's stream
+    included (``walls``)."""
     rec = types.SimpleNamespace(trajs=[], walls=[])
     collect = backend_cls.collect
 
     def recorded(self, params):
         t0 = time.perf_counter()
         merged, stats = collect(self, params)
-        torch.cuda.synchronize()
+        # the collect's own stream: under overlap the learn runs on another
+        torch.cuda.current_stream().synchronize()
         rec.walls.append(time.perf_counter() - t0)
         rec.trajs.append({k: v.clone() for k, v in merged.items()})
         return merged, stats
@@ -1667,6 +1686,232 @@ def fused_runs(counted, runs, check_logs, zero_counts, device, walls,
     return report
 
 
+def overlap_runs(cli, counted, runs, check_logs, zero_counts, device,
+                 serial_walls):
+    """Slice 11, the overlap schedule (``--overlap``: after two serial
+    iterations, collect k+1 runs while learn k does, with the params learn
+    k starts from). (a) Fused PPO cheetah at 160 envs × 125 steps, 10
+    iterations (2 serial, 8 pipelined: a learn graph on one stream, a
+    collect graph on another): bit for bit against a second run, against
+    the plain versions (``kernels="ref"``), against the sync runtime's
+    overlap on the same carry and against a serial loop written out with
+    the stale params; 2 overlapped iterations against the serial fused
+    run; seconds per pipelined iteration and ``overlap_saved_s`` against
+    the serial fused replay on the same carry; each graph's kernel nodes
+    (read by name) equal to its launches per replay, the counts to each
+    half's (eager iterations + replays) × those, and the two graphs' pools
+    apart. (b) Fused SAC cheetah prioritized (2^20 slots, batch 256), 6
+    iterations, against the sync overlap. (c) Sync PPO cheetah N=10
+    through the train CLI, 5 iterations, inline and over 10 worker
+    processes, the two bit for bit; collect wall and exposed learn against
+    the serial runs of the actor-plane phase (``serial_walls``). Returns
+    the report."""
+    from repro_torch.core.backends import InlineBackend, ProcessBackend
+    from repro_torch.core.queues import snapshot
+    from repro_torch.data import trajectory
+    from repro_torch.experiment import ExperimentSpec, Schedule, build, run
+    n, per, h = MAIN_SAMPLERS
+    B = n * per
+    report = {"device": device}
+    iters = 10
+    one = Schedule(num_samplers=1, global_batch=B, horizon=h,
+                   iterations=iters, overlap=True)
+    ppo = ExperimentSpec(env="cheetah", algo="ppo", runtime="fused",
+                         schedule=one)
+
+    def returns(res):
+        return [lg.mean_return for lg in res.logs]
+
+    def schedule_of(label, logs, iters):
+        logs = [lg if isinstance(lg, dict) else lg.as_dict() for lg in logs]
+        stale = [lg["staleness"] for lg in logs]
+        saved = [lg["overlap_saved_s"] for lg in logs]
+        assert stale == [0.0] * 3 + [1.0] * (iters - 3), (label, stale)
+        assert min(saved) >= 0.0 and saved[0] == saved[1] == saved[-1] == 0
+        assert all(lg["learn_time"] >= 0.0 for lg in logs), label
+        # a pipelined iteration with a collect: its window, the learn's
+        # exposed part and the part hidden under the collect
+        windows = [lg["learn_time"] + lg["overlap_saved_s"]
+                   for lg in logs[2:-1]]
+        log(f"  {label}: staleness {stale}, overlap_saved_s "
+            f"{[round(x, 5) for x in saved]}, exposed learn "
+            f"{[round(lg['learn_time'], 5) for lg in logs]}, collect "
+            f"{[round(lg['collect_time'], 5) for lg in logs]}, s per "
+            f"pipelined iteration {[round(x, 5) for x in windows]}")
+        return {"staleness": stale, "overlap_saved_s": saved,
+                "learn_time": [lg["learn_time"] for lg in logs],
+                "collect_time": [lg["collect_time"] for lg in logs],
+                "s_per_pipelined_iteration": windows}
+
+    def fused(label, spec, iters, per_iteration):
+        res = counted(label, lambda: run(spec))
+        check_logs(label, res.logs, iters, B * h)
+        out = schedule_of(label, res.logs, iters)
+        halves = dict(zip(("collect", "learn"), res.runner.halves))
+        want, per_replay = {}, {}
+        for half, engine in halves.items():
+            stats = engine.graph_stats
+            nodes = graph_kernel_calls(engine.graph)
+            assert stats["launches_per_replay"] == nodes, (label, half)
+            assert engine.eager_iterations + engine.replays == iters
+            for k, v in nodes.items():
+                per_replay[k] = per_replay.get(k, 0) + v
+                want[k] = want.get(k, 0) + (
+                    engine.eager_iterations + engine.replays) * v
+            out[half] = {"pool_mib": stats["pool_mib"],
+                         "capture_s": stats["capture_s"],
+                         "kernel_nodes": nodes,
+                         "eager": engine.eager_iterations,
+                         "replays": engine.replays}
+        assert per_replay == ({} if spec.kernels == "ref"
+                              else per_iteration), (label, per_replay)
+        assert runs[label] == zero_counts(**want), (label, runs[label])
+        assert (halves["collect"].graph.pool()
+                != halves["learn"].graph.pool()), label
+        log(f"main path [{label}]: kernel nodes collect "
+            f"{out['collect']['kernel_nodes']}, learn "
+            f"{out['learn']['kernel_nodes']} (launches per replay agree); "
+            f"eager / replays collect {out['collect']['eager']} / "
+            f"{out['collect']['replays']}, learn {out['learn']['eager']} / "
+            f"{out['learn']['replays']}; graph pools "
+            f"{out['collect']['pool_mib']:.1f} / "
+            f"{out['learn']['pool_mib']:.1f} MiB")
+        return res, out
+
+    # (a) fused PPO cheetah
+    label = f"overlap fused ppo cheetah B={B}"
+    res, report["ppo_fused"] = fused(label, ppo, iters,
+                                     {"cheetah_step": h, "gae": 1})
+    want = (carried(res), returns(res))
+    del res
+    label = f"overlap fused ppo cheetah B={B} again"
+    res, report["ppo_fused_again"] = fused(label, ppo, iters,
+                                           {"cheetah_step": h, "gae": 1})
+    same_carry(f"{label} vs the first run", (carried(res), returns(res)),
+               want)
+    del res
+    label = f"overlap fused ppo cheetah B={B} ref"
+    res, _ = fused(label, dataclasses.replace(ppo, kernels="ref"), iters,
+                   {"cheetah_step": h, "gae": 1})
+    same_carry(f"{label} vs cuda", (carried(res), returns(res)), want)
+    del res
+    label = f"overlap sync ppo cheetah N=1 B={B}"
+    res = counted(label, lambda: run(dataclasses.replace(ppo,
+                                                         runtime="sync")))
+    check_logs(label, res.logs, iters, B * h)
+    report["ppo_sync_n1"] = schedule_of(label, res.logs, iters)
+    assert runs[label] == zero_counts(cheetah_step=iters * h, gae=iters)
+    same_carry(f"overlap fused ppo cheetah B={B} vs {label}", want,
+               (carried(res), returns(res)))
+    del res
+    # the stale schedule written out: collect k+1 with a snapshot of p_k
+    label = f"stale schedule by hand, ppo cheetah B={B}"
+    hand = build(dataclasses.replace(
+        ppo, runtime="sync", schedule=dataclasses.replace(one,
+                                                          overlap=False)))
+    step, collect = hand._train_step, hand.backend.collect
+    params, opt, plane = hand.params, hand.opt_state, hand.plane_state
+    merged, _ = collect(params)
+    rets = []
+    for k in range(iters):
+        acting = snapshot(params) if k >= 2 else params
+        params, opt, plane, _ = step(params, opt, plane, merged)
+        rets.append(float(trajectory.episode_returns(merged)))
+        if k + 1 < iters:
+            merged, _ = collect(acting)
+    hand.params, hand.opt_state, hand.plane_state = params, opt, plane
+    hand.close()
+    same_carry(f"overlap fused ppo cheetah B={B} vs {label}", want,
+               (carried(types.SimpleNamespace(params=params, runner=hand)),
+                rets))
+    del hand, params, opt, plane, merged
+    # two iterations are the serial schedule
+    short = dataclasses.replace(one, iterations=2)
+    got = run(dataclasses.replace(ppo, schedule=short))
+    serial = run(dataclasses.replace(ppo, schedule=dataclasses.replace(
+        short, overlap=False)))
+    same_carry("overlap fused ppo cheetah 2 iterations vs serial fused",
+               (carried(got), returns(got)),
+               (carried(serial), returns(serial)))
+    del got, serial
+    # the serial fused replay on the same carry, chunks of 10
+    runner = build(dataclasses.replace(
+        ppo, schedule=dataclasses.replace(one, overlap=False)))
+    runner.run(2)
+    runner.chunk = 10
+    report["ppo_serial_fused_replay_s"] = [runner.run(10)[-1].learn_time
+                                           for _ in range(2)]
+    del runner
+    pipelined = (report["ppo_fused"]["s_per_pipelined_iteration"]
+                 + report["ppo_fused_again"]["s_per_pipelined_iteration"])
+    log(f"  overlap vs serial, fused PPO cheetah {B} x {h}, {device}: s "
+        f"per pipelined iteration {[round(x, 5) for x in pipelined]}, "
+        f"serial replay (chunks of 10) "
+        f"{[round(x, 5) for x in report['ppo_serial_fused_replay_s']]}")
+
+    # (b) fused SAC cheetah prioritized at 2^20 slots, batch 256
+    sac = ExperimentSpec(env="cheetah", algo="sac", buffer="prioritized",
+                         runtime="fused",
+                         buffer_kwargs={"capacity": 1_000_000,
+                                        "batch_size": 256},
+                         schedule=dataclasses.replace(one, iterations=6))
+    label = f"overlap fused sac cheetah prioritized B={B}"
+    res, report["sac_fused"] = fused(label, sac, 6, {
+        "cheetah_step": h, "ring_insert": 1, "ring_gather": 4,
+        "sumtree_find": 4, "sumtree_update": 5})
+    want = (carried(res), returns(res))
+    del res
+    label = f"overlap sync sac cheetah prioritized N=1 B={B}"
+    res = counted(label, lambda: run(dataclasses.replace(sac,
+                                                         runtime="sync")))
+    check_logs(label, res.logs, 6, B * h)
+    report["sac_sync_n1"] = schedule_of(label, res.logs, 6)
+    same_carry(f"overlap fused sac vs {label}", want,
+               (carried(res), returns(res)))
+    del res, want
+
+    # (c) sync PPO cheetah N=10 through the CLI: inline, then 10 processes
+    argv = ["--env", "cheetah", "--algo", "ppo", "--num-samplers", str(n),
+            "--global-batch", str(B), "--horizon", str(h), "--iterations",
+            "5", "--overlap", "--kernels", "cuda"]
+    label = "overlap ppo cheetah N=10 inline"
+    with recording(InlineBackend) as trajs:
+        logs = counted(label, lambda: cli(argv))
+    check_logs(label, logs, 5, B * h)
+    report["inline_n10"] = schedule_of(label, logs, 5)
+    report["inline_n10"]["collect_wall_s"] = trajs.walls
+    assert runs[label] == zero_counts(cheetah_step=5 * n * h, gae=5), runs
+    inline = snapshot_run(label, cli.result, trajs)
+    label = "overlap ppo cheetah N=10 process"
+    with recording(ProcessBackend) as trajs:
+        logs = counted(label, lambda: cli(argv + ["--backend", "process"]))
+    pool = cli.result.runner.backend.pool
+    workers = zero_counts()
+    for _key, info in pool.worker_launches.items():
+        for k, v in info["launches"].items():
+            workers[k] += v
+    runs[label] = {k: runs[label][k] + workers[k] for k in runs[label]}
+    check_no_leftovers(label, pool)
+    check_logs(label, logs, 5, B * h)
+    report["process_n10"] = schedule_of(label, logs, 5)
+    report["process_n10"]["collect_wall_s"] = trajs.walls
+    report["process_n10"]["pool_start_s"] = pool.startup_seconds
+    assert workers == zero_counts(cheetah_step=5 * n * h), workers
+    assert runs[label] == zero_counts(cheetah_step=5 * n * h, gae=5), runs
+    same_run(label, snapshot_run(label, cli.result, trajs), inline)
+    report["serial"] = serial_walls
+    for key in ("inline_n10", "process_n10"):
+        log(f"  {key} overlap, {device}: s per pipelined iteration "
+            f"{[round(x, 4) for x in report[key]['s_per_pipelined_iteration']]}"
+            f", collect wall "
+            f"{[round(x, 4) for x in report[key]['collect_wall_s']]}, "
+            f"exposed learn "
+            f"{[round(x, 4) for x in report[key]['learn_time']]}; serial "
+            f"collect wall + learn "
+            f"{[round(x, 4) for x in serial_walls[key]]}")
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -1716,6 +1961,14 @@ def main(argv=None) -> int:
                     (("main", "kernels_at_main_shapes"),) + TIMING_LINES)
         print_ok()
         return 0
+
+    # the wall seconds of each phase from here on, printed at the end
+    seconds, lap = {}, [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        seconds[name] = now - lap[0]
+        lap[0] = now
 
     # 3. kernels against their plain versions
     errs = {k: (0, 0.0) for k in kernels.KERNELS}
@@ -1833,6 +2086,8 @@ def main(argv=None) -> int:
             assert bool((tree.winner == -1).all()), "scratch not reset"
         log(f"check sumtree_find/sumtree_update cap={cap}: exact")
     check_lm_kernels(errs, gen)
+
+    phase_done("kernels")
 
     # 4. main path
     runs = {}
@@ -1997,10 +2252,14 @@ def main(argv=None) -> int:
     log(f"  ddpg prioritized: ring {int(ring.size)} of {CAP}, tree total "
         f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
 
+    phase_done("main path: ppo, sac, cart-pole, trpo, ddpg")
+
     # slice 9: the actor plane
     actor_report = actor_plane_runs(cli, counted, runs, check_logs,
                                     zero_counts, ppo_inline, sac_inline)
     del ppo_inline, sac_inline
+
+    phase_done("actor plane")
 
     # slice 10: the fused runtime
     fused_report = fused_runs(
@@ -2011,8 +2270,21 @@ def main(argv=None) -> int:
         vec)
     del vec
 
+    phase_done("fused runtime")
+
+    # slice 11: the overlap schedule
+    overlap_report = overlap_runs(
+        cli, counted, runs, check_logs, zero_counts, smi,
+        {"inline_n10": inline_s,
+         "process_n10":
+             actor_report["ppo cheetah N=10 process"]["s_per_iteration"]})
+
+    phase_done("overlap")
+
     # slice 4: LM serving, hymba-1.5b and falcon-mamba-7b
     run_a = lm_serve_runs(counted, runs, zero_counts)
+
+    phase_done("lm serving")
 
     # 5. reference: kernels vs plain versions end to end on small runs
     def cuda_vs_ref(label, spec, plane=lambda res: []):
@@ -2061,6 +2333,7 @@ def main(argv=None) -> int:
     lm_report = lm_cuda_vs_ref(run_a)
     del run_a
 
+    phase_done("reference")
     launch_floor()
     timings = time_kernels()
     entries = []
@@ -2075,7 +2348,10 @@ def main(argv=None) -> int:
     log(json.dumps({"lm_cuda_vs_ref": lm_report}))
     log(json.dumps({"actor_plane": actor_report}))
     log(json.dumps({"fused": fused_report}))
+    log(json.dumps({"overlap": overlap_report}))
     log(json.dumps({"launches_by_run": runs}))
+    phase_done("timings")
+    log(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": entries}), flush=True)
     print_ok()
     return 0

@@ -9,12 +9,19 @@ trajectory plus per-sampler timing:
   over samplers) can be reported from one process.
 * ``ThreadedBackend`` — the same rollouts launched from one thread each,
   then joined. The rollout loop holds the GIL between launches, so little
-  overlaps; every thread launches on the default stream.
+  overlaps; every thread launches on the caller's current stream.
 * ``ProcessBackend``  — the paper's deployment: N worker processes, each
   rebuilt from a ``WorkerSpec`` on the run's device, fed through the
   shared-memory transport of ``core/ipc.py``. Trajectories merge in
   worker-index order, so with matched per-worker seeds ``process ==
   inline`` bit for bit.
+
+A collect runs on the caller's current stream and ends with that stream's
+barrier (``timing.stream_synchronize``), so under the overlap schedule
+(``orchestrator.SyncRunner``) it neither waits for the learn on the
+learner's stream nor is counted in its time. The process backend publishes
+whatever params it is given: under overlap, the runner's snapshot of the
+params the learn is about to update.
 
 Every backend is a context manager; ``close()`` releases what it holds
 (threads, worker processes, shared memory) and is idempotent.
@@ -30,7 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import registry
-from repro_torch.core.timing import synchronize
+from repro_torch.core.timing import on_stream, stream_synchronize
 from repro_torch.data import trajectory
 
 # the kernel sources a rollout worker launches: the env step (GAE, the
@@ -61,10 +68,11 @@ class BackendCloseMixin:
 
 
 def timed_rollout(rollout: Callable, params: Any, carry: Any):
-    """Run one rollout to completion on the device: ``(carry', traj, dt)``."""
+    """Run one rollout to completion on the current stream: ``(carry',
+    traj, dt)``."""
     t0 = time.perf_counter()
     carry, traj = rollout(params, carry)
-    synchronize(traj["rewards"].device)
+    stream_synchronize(traj["rewards"].device)
     return carry, traj, time.perf_counter() - t0
 
 
@@ -103,8 +111,9 @@ class InlineBackend(BackendCloseMixin):
 class ThreadedBackend(BackendCloseMixin):
     """Fan-out/join over sampler threads (``AsyncOrchestrator``'s sampler
     loop, made synchronous): each sampler runs its rollout in its own
-    thread. Each carry holds its own generator, so the trajectories are the
-    inline backend's bit for bit."""
+    thread, on the stream current in the thread that called ``collect``.
+    Each carry holds its own generator, so the trajectories are the inline
+    backend's bit for bit."""
 
     def __init__(self, rollout: Callable, carries: List[Any]):
         self.rollout = rollout
@@ -112,13 +121,17 @@ class ThreadedBackend(BackendCloseMixin):
         self.num_samplers = len(carries)
         self._pool = ThreadPoolExecutor(max_workers=self.num_samplers)
 
-    def _one(self, i: int, params):
-        self.carries[i], traj, dt = timed_rollout(
-            self.rollout, params, self.carries[i])
+    def _one(self, i: int, params, stream):
+        with on_stream(stream):
+            self.carries[i], traj, dt = timed_rollout(
+                self.rollout, params, self.carries[i])
         return traj, dt
 
     def collect(self, params):
-        futures = [self._pool.submit(self._one, i, params)
+        device = self.carries[0][1].device
+        stream = (torch.cuda.current_stream(device)
+                  if device.type == "cuda" else None)
+        futures = [self._pool.submit(self._one, i, params, stream)
                    for i in range(self.num_samplers)]
         results = [f.result() for f in futures]
         merged = merge_trajs([r[0] for r in results])

@@ -1,6 +1,7 @@
 """The fused engine: collect -> GAE or replay -> learn, one CUDA-graph
-replay per iteration (port of ``repro/core/fused.py``; the ``overlap``
-schedule is ROADMAP.md queue 1 item 6b).
+replay per iteration, or, under the overlap schedule, a collect graph and a
+learn graph replayed at once on two streams (port of
+``repro/core/fused.py``).
 
 The stepped runners pay the host for every launch of an iteration: a
 PyTorch call per op, a ``ctypes`` call per kernel, and a barrier or two
@@ -42,6 +43,16 @@ form) runs as the train step of a fifo plane (``learner_step``).
 ``make_fused_train_loop`` builds ``train_chunk(state) -> (state,
 metrics)``; ``FusedRunner`` wraps the engine in the runner interface
 (``run`` -> ``IterationLog`` list).
+
+``FusedRunner(overlap=True)`` runs the reference's pipelined schedule over
+two engines, one for each half of the iteration: the collect (the env
+carry's generator registered with its graph) and the learn (the plane's),
+each graph with a memory pool of its own. After two serial iterations,
+learn k is replayed on a learner stream while collect k+1 is replayed on a
+collect stream with the params learn k starts from; the trajectory is
+copied into the learn's own buffer, and the params into the collect's
+static copy, on the collect stream between iterations. ``chunk`` is
+ignored under overlap.
 """
 from __future__ import annotations
 
@@ -49,13 +60,29 @@ import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
-from torch import nn
 
 from repro_torch import kernels
 from repro_torch.core import sampler as sampler_mod
 from repro_torch.core.backends import BackendCloseMixin
-from repro_torch.core.orchestrator import IterationLog, record_log
-from repro_torch.core.timing import PhaseTimer, synchronize
+from repro_torch.core.orchestrator import (
+    OVERLAP_WARMUP,
+    IterationLog,
+    OverlapClock,
+    record_log,
+    tree_ready,
+)
+from repro_torch.core.queues import (
+    refresh,
+    snapshot,
+    state_generators,
+    state_tensors,
+)
+from repro_torch.core.timing import (
+    PhaseTimer,
+    on_stream,
+    stream_synchronize,
+    synchronize,
+)
 from repro_torch.data import trajectory
 
 
@@ -67,43 +94,6 @@ class TrainState(NamedTuple):
     opt_state: Any
     env_carry: Any
     plane_state: Any = None
-
-
-def _walk(x, tensors: List[torch.Tensor], generators: List[torch.Generator]):
-    """Collect the tensors of a state in a fixed order (a module's
-    parameters and buffers, a sequence's or a dict's entries in order) and
-    its generators."""
-    if isinstance(x, torch.Tensor):
-        tensors.append(x)
-    elif isinstance(x, torch.Generator):
-        generators.append(x)
-    elif isinstance(x, nn.Module):
-        tensors.extend(x.parameters())
-        tensors.extend(x.buffers())
-    elif isinstance(x, dict):
-        for v in x.values():
-            _walk(v, tensors, generators)
-    elif isinstance(x, (tuple, list)):
-        for v in x:
-            _walk(v, tensors, generators)
-    elif isinstance(x, bool):
-        pass    # host state (a ring's ``filled``): the first iteration's stays
-    elif x is not None:
-        raise TypeError(f"the fused engine carries tensors, modules, "
-                        f"generators and containers of them; got "
-                        f"{type(x).__name__}")
-
-
-def state_tensors(state) -> List[torch.Tensor]:
-    tensors: List[torch.Tensor] = []
-    _walk(state, tensors, [])
-    return tensors
-
-
-def state_generators(state) -> List[torch.Generator]:
-    generators: List[torch.Generator] = []
-    _walk(state, [], generators)
-    return generators
 
 
 def learner_step(learn: Callable) -> Callable:
@@ -140,14 +130,16 @@ class FusedEngine:
     first iteration returns, whose tensors every later iteration
     overwrites in place. On CUDA the first ``WARMUP`` iterations run
     eagerly on a side stream, then one iteration is captured in a CUDA
-    graph and each later one is a replay. On the CPU every iteration runs
-    eagerly.
+    graph (in a memory pool of its own, ``pool``) and each later one is a
+    replay. On the CPU every iteration runs eagerly.
 
     ``run(state, n)`` runs ``n`` iterations and returns ``(state,
     metrics)``, each metric a float32 ``(n,)`` CPU tensor, read with one
-    host sync; every later ``run`` takes the state it returned.
-    ``graph_stats`` holds the warm-up and capture seconds, the graph
-    pool's MiB and the kernel launches a replay makes."""
+    host sync; every later ``run`` takes the state it returned. The overlap
+    schedule drives two engines step by step instead (``eager``,
+    ``capture``, ``replay``). ``graph_stats`` holds the warm-up and capture
+    seconds, the graph pool's MiB and the kernel launches a replay
+    makes."""
 
     # eager iterations before the capture: the first builds what a
     # capture cannot, the second runs on the state made static
@@ -159,18 +151,24 @@ class FusedEngine:
         self._tensors: List[torch.Tensor] = []     # the static state's
         self.keys: Optional[List[str]] = None
         self.graph = None
+        self.pool = None
         self._graph_out: Optional[torch.Tensor] = None
-        self._done_eager = 0
+        self.eager_iterations = 0       # iterations run eagerly, and
+        self.replays = 0                # replayed from the graph
         self.graph_stats: Dict[str, Any] = {}
 
     # ------------------------------------------------------------ eager
-    def _stack(self, metrics) -> torch.Tensor:
+    def _stack(self, metrics) -> Optional[torch.Tensor]:
+        """The metrics as one float32 vector (``keys``' order), or ``None``
+        for an iteration that reports none."""
         if self.keys is None:
             self.keys = list(metrics)
+        if not self.keys:
+            return None
         return torch.stack([metrics[k].detach().reshape(()).to(torch.float32)
                             for k in self.keys])
 
-    def _first(self, state) -> torch.Tensor:
+    def _first(self, state) -> Optional[torch.Tensor]:
         """The first iteration, from the caller's state: its result becomes
         the static state. No two of its leaves may share storage (a copy
         into one would overwrite the other)."""
@@ -187,7 +185,7 @@ class FusedEngine:
         self._tensors = tensors
         return self._stack(metrics)
 
-    def _step(self) -> torch.Tensor:
+    def _step(self) -> Optional[torch.Tensor]:
         """One iteration into the static state: every new leaf is copied
         into the static leaf it replaces."""
         new, metrics = self.one_iteration(self.state)
@@ -202,13 +200,31 @@ class FusedEngine:
                     s.copy_(n)
         return self._stack(metrics)
 
+    def eager(self, state=None) -> Optional[torch.Tensor]:
+        """One eager iteration on the current stream: from the caller's
+        ``state`` the first time, into the static state after that."""
+        row = self._first(state) if self.state is None else self._step()
+        self.eager_iterations += 1
+        return row
+
     # ----------------------------------------------------------- graph
-    def _capture(self, device: torch.device) -> None:
-        """Capture one ``_step`` in a CUDA graph with every generator of
-        the state registered, and record what it cost. The wrappers' calls
-        during the capture launch nothing: their counts are taken back out,
-        and each replay adds them (``launches_per_replay``). The graph is
-        kept (``raw_cuda_graph``), so its kernel nodes can be read."""
+    def capture(self, device: torch.device,
+                stream: Optional["torch.cuda.Stream"] = None) -> None:
+        """Capture one ``_step`` in a CUDA graph, in a memory pool of its
+        own, with every generator of the state registered, and record what
+        it cost. The wrappers' calls during the capture launch nothing:
+        their counts are taken back out, and each replay adds them
+        (``launches_per_replay``). The graph is kept (``raw_cuda_graph``),
+        so its kernel nodes can be read.
+
+        ``stream`` is the capture stream (default: PyTorch's). Two graphs
+        that are replayed at once must be captured on two streams: cuBLAS
+        keeps one workspace per (handle, stream), and a capture bakes in
+        the workspace of its stream, so two graphs captured on one stream
+        would run their matmuls in one workspace at once."""
+        if self.eager_iterations < self.WARMUP:
+            raise RuntimeError(f"capture after {self.WARMUP} eager "
+                               f"iterations (ran {self.eager_iterations})")
         before = kernels.launch_counts()
         # the capture empties the allocator's cache first; so does this,
         # so that the growth of the reserve is the graph's pool
@@ -220,7 +236,8 @@ class FusedEngine:
         for g in state_generators(self.state):
             if g.device.type == "cuda":
                 graph.register_generator_state(g)
-        with torch.cuda.graph(graph):
+        self.pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=self.pool, stream=stream):
             out = self._step()
         after = kernels.launch_counts()
         per_replay = {k: after[k] - before[k] for k in after
@@ -235,6 +252,14 @@ class FusedEngine:
             / 2 ** 20,
             launches_per_replay=per_replay)
 
+    def replay(self) -> Optional[torch.Tensor]:
+        """One iteration: the graph replayed on the current stream. Returns
+        the graph's metrics vector, which the next replay overwrites."""
+        self.graph.replay()
+        self.replays += 1
+        kernels.add_launches(self.graph_stats["launches_per_replay"])
+        return self._graph_out
+
     def run(self, state, n: int):
         """``n`` iterations from ``state``: ``(static state, metrics)``."""
         if n < 1:
@@ -245,35 +270,26 @@ class FusedEngine:
                              "engine updates that one in place")
         device = state_tensors(state)[0].device
         if device.type != "cuda":
-            if self.state is None:
-                rows.append(self._first(state))
             while len(rows) < n:
-                rows.append(self._step())
+                rows.append(self.eager(state))
             return self.state, self._metrics(rows)
         if self.graph is None:
             t0 = time.perf_counter()
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
-                if self.state is None:
-                    rows.append(self._first(state))
-                    self._done_eager = 1
-                while self._done_eager < self.WARMUP and len(rows) < n:
-                    rows.append(self._step())
-                    self._done_eager += 1
+                while self.eager_iterations < self.WARMUP and len(rows) < n:
+                    rows.append(self.eager(state))
             torch.cuda.current_stream(device).wait_stream(side)
             synchronize(device)
             self.graph_stats["warmup_s"] = (
                 self.graph_stats.get("warmup_s", 0.0)
                 + time.perf_counter() - t0)
-            if self._done_eager < self.WARMUP:
+            if self.eager_iterations < self.WARMUP:
                 return self.state, self._metrics(rows)
-            self._capture(device)
-        per_replay = self.graph_stats["launches_per_replay"]
+            self.capture(device)
         while len(rows) < n:
-            self.graph.replay()
-            kernels.add_launches(per_replay)
-            rows.append(self._graph_out.clone())
+            rows.append(self.replay().clone())
         return self.state, self._metrics(rows)
 
     def _metrics(self, rows: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -320,7 +336,24 @@ class FusedRunner(BackendCloseMixin):
     of the chunk's wall time. ``chunk`` (default: all of a ``run``'s
     iterations) is the number of iterations between host syncs. The runner
     takes over the state it is given and updates it in place.
-    ``overlap=True`` is ROADMAP.md queue 1 item 6b and is rejected."""
+
+    ``overlap=True`` trades the one graph for a pipeline of two, as the
+    reference trades its one dispatch for two: a collect engine
+    (``rollout``) and a learn engine (the train step, with ``mean_return``
+    computed from the trajectory it consumes), each eager for the two
+    serial warm-up iterations, then captured in a graph with a memory pool
+    of its own and the generators of its half (the env carry's, the
+    plane's) registered. Per pipelined iteration, learn k is replayed on a
+    learner stream and collect k+1 on a collect stream, acting with the
+    params learn k starts from (``staleness`` 1.0 on the iteration that
+    consumes it). Between iterations, on the collect stream, the new
+    trajectory is copied into the learn's own buffer and the params into
+    the collect's static copy, so neither graph reads what the other
+    writes; the learner stream waits for those copies. ``chunk`` is
+    ignored: the host must see the collect/learn boundary to pipeline
+    across it. The logs follow the reference's formulas: ``collect_time``
+    the collect's own seconds, ``learn_time`` the window less
+    ``overlap_saved_s`` (``orchestrator.OverlapClock``)."""
 
     def __init__(self, env, learn: Optional[Callable], params: Any,
                  opt_state: Any, env_carry: Any, horizon: int,
@@ -329,16 +362,13 @@ class FusedRunner(BackendCloseMixin):
                  train_step: Optional[Callable] = None,
                  plane_state: Any = None,
                  overlap: bool = False):
-        if overlap:
-            raise NotImplementedError(
-                "the overlap schedule of the fused runner is not ported to "
-                "repro_torch yet; see ROADMAP.md (queue 1 item 6b)")
         if chunk is not None and chunk < 1:
             raise ValueError(f"chunk={chunk} must be >= 1")
         self.env = env
         self.horizon = horizon
         self.chunk = chunk
-        self.engine = make_fused_train_loop(
+        self.overlap = overlap
+        self.engine = None if overlap else make_fused_train_loop(
             env, learn, horizon, chunk or 1, rollout, train_step).engine
         self.state = TrainState(params, opt_state, env_carry, plane_state)
         self.num_samplers = 1
@@ -346,6 +376,18 @@ class FusedRunner(BackendCloseMixin):
         self.last_metrics: Dict[str, torch.Tensor] = {}
         self._samples_per_iter = env_carry[1].shape[0] * horizon
         self.timer = PhaseTimer()
+        if overlap:
+            if train_step is None and learn is None:
+                raise ValueError("the fused runner needs learn or "
+                                 "train_step")
+            # the learn's own trajectory buffer, made at the first handoff
+            self._traj: List[Optional[Dict[str, torch.Tensor]]] = [None]
+            self.halves = _overlap_engines(
+                rollout or sampler_mod.make_env_rollout(env, horizon),
+                train_step or learner_step(learn), self._traj)
+            self._overlap_clock = OverlapClock()
+            self._overlap_done = 0
+            self._streams = None        # (collect, learn) on the card
 
     @property
     def params(self):
@@ -366,9 +408,16 @@ class FusedRunner(BackendCloseMixin):
 
     @property
     def graph_stats(self) -> Dict[str, Any]:
+        """The engine's ``graph_stats``; under overlap, each half's, by
+        ``"collect"`` and ``"learn"``."""
+        if self.overlap:
+            return {"collect": self.halves[0].graph_stats,
+                    "learn": self.halves[1].graph_stats}
         return self.engine.graph_stats
 
     def run(self, iterations: int) -> List[IterationLog]:
+        if self.overlap:
+            return self._run_overlapped(iterations)
         done = 0
         while done < iterations:
             c = min(self.chunk or iterations, iterations - done)
@@ -387,3 +436,183 @@ class FusedRunner(BackendCloseMixin):
                 ))
             done += c
         return self.logs
+
+    # ----------------------------------------------------------- overlap
+    def _collect(self) -> float:
+        """One collect on the current (collect) stream with the collect's
+        params copy, timed to that stream's barrier: eager before the
+        collect graph exists, else a replay."""
+        collect = self.halves[0]
+        t0 = time.perf_counter()
+        if collect.graph is not None:
+            collect.replay()
+        else:
+            collect.eager()
+        stream_synchronize(self._device)
+        return time.perf_counter() - t0
+
+    def _copy_params(self) -> None:
+        """The params as they are into the collect's copy, on the current
+        stream: before the learn that will update them is issued."""
+        learn = self.halves[1]
+        refresh(self.halves[0].state[0],
+                learn.state[0] if learn.state is not None
+                else self.state.params)
+
+    def _handoff(self) -> None:
+        """The collected trajectory into the learn's own buffer (the first
+        time, a copy of it), on the current stream."""
+        traj = self.halves[0].state[2]
+        if self._traj[0] is None:
+            self._traj[0] = snapshot(traj)
+        else:
+            refresh(self._traj[0], traj)
+
+    def _learn(self):
+        """Issue one learn on the learner stream (eager, or a replay), after
+        the collect stream's work so far; returns its metrics row (a copy,
+        on the learner stream) and the event recorded after it."""
+        learn = self.halves[1]
+        stream = self._streams[1] if self._streams else None
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(self._device))
+        with on_stream(stream):
+            if learn.graph is not None:
+                row = learn.replay().clone()
+            elif learn.state is None:
+                row = learn.eager((self.state.params, self.state.opt_state,
+                                   self.state.plane_state))
+            else:
+                row = learn.eager()
+            done = None
+            if stream is not None:
+                done = torch.cuda.Event()
+                done.record(stream)
+        return row, done
+
+    def _capture_halves(self) -> None:
+        """Capture each half that has no graph yet, on the stream that
+        replays it (so each bakes in its own cuBLAS workspace); the two
+        register disjoint sets of generators (each generator with one
+        graph)."""
+        gens = [set(map(id, state_generators(e.state))) for e in self.halves]
+        if gens[0] & gens[1]:
+            raise ValueError("the collect and the learn share a generator: "
+                             "each may be registered with one graph only")
+        for engine, stream in zip(self.halves, self._streams):
+            if engine.graph is None:
+                engine.capture(self._device, stream)
+
+    def _run_overlapped(self, iterations: int) -> List[IterationLog]:
+        """The reference's schedule: a collect, then per iteration the learn
+        on the last collect and (but in the last iteration) the next
+        collect: after it in the ``OVERLAP_WARMUP`` serial iterations,
+        while it runs in the pipelined ones."""
+        if iterations < 1:
+            return self.logs
+        collect, learn = self.halves
+        clock = self._overlap_clock
+        self._device = state_tensors(self.state)[0].device
+        if self._device.type == "cuda" and self._streams is None:
+            self._streams = (torch.cuda.Stream(self._device),
+                             torch.cuda.Stream(self._device))
+        caller = None
+        if self._streams:
+            caller = torch.cuda.current_stream(self._device)
+            for stream in self._streams:
+                stream.wait_stream(caller)
+        done0 = len(self.logs)
+        rows, timing = [], []
+        with on_stream(self._streams[0] if self._streams else None):
+            if collect.state is None:
+                t0 = time.perf_counter()
+                collect.eager((snapshot(self.state.params),
+                               self.state.env_carry, None))
+                stream_synchronize(self._device)
+                collect_dur = time.perf_counter() - t0
+            else:
+                self._copy_params()
+                collect_dur = self._collect()
+            stale = 0.0
+            for it in range(iterations):
+                data_dur, data_stale = collect_dur, stale
+                warm, self._overlap_done = (self._overlap_done,
+                                            self._overlap_done + 1)
+                more = it + 1 < iterations
+                saved = 0.0
+                if warm < OVERLAP_WARMUP:
+                    t0 = time.perf_counter()
+                    self._handoff()
+                    row, done = self._learn()
+                    if done is not None:
+                        done.synchronize()
+                    window = time.perf_counter() - t0
+                    if warm > 0:    # iteration 0 builds what it needs
+                        clock.note_serial(window)
+                    if more:
+                        self._copy_params()
+                        collect_dur, stale = self._collect(), 0.0
+                else:
+                    if self._streams:
+                        self._capture_halves()
+                    t0 = time.perf_counter()
+                    self._handoff()
+                    if more:        # p_k, before learn k writes it
+                        self._copy_params()
+                    row, done = self._learn()
+                    if more:
+                        next_dur = self._collect()
+                        saved = clock.saved(next_dur, tree_ready(done))
+                        collect_dur, stale = next_dur, 1.0
+                    if done is not None:
+                        done.synchronize()
+                    window = time.perf_counter() - t0
+                rows.append(row)
+                timing.append((data_dur, max(0.0, window - saved),
+                               data_stale, saved))
+        if caller is not None:
+            for stream in self._streams:
+                caller.wait_stream(stream)
+        self.state = TrainState(learn.state[0], learn.state[1],
+                                collect.state[1], learn.state[2])
+        self.last_metrics = learn._metrics(rows)
+        for j, (ret, (collect_s, learn_s, stale, saved)) in enumerate(zip(
+                self.last_metrics["mean_return"].tolist(), timing)):
+            record_log(self.logs, self.timer, IterationLog(
+                iteration=done0 + j,
+                collect_time=collect_s,
+                collect_time_serial=collect_s,
+                learn_time=learn_s,
+                mean_return=ret,
+                samples=self._samples_per_iter,
+                staleness=stale,
+                overlap_saved_s=saved,
+            ))
+        return self.logs
+
+
+def _overlap_engines(rollout: Callable, train_step: Callable, traj_box):
+    """``(collect, learn)`` engines for the overlap schedule. The collect's
+    state is ``(params copy, env carry, trajectory)``; the learn's is
+    ``(params, opt_state, plane_state)``, and it consumes the trajectory
+    buffer in ``traj_box[0]``, which stays out of its state: the fifo
+    buffer's state is the trajectory it was given, so the two would share
+    storage. The learn reports the train step's metrics and the
+    ``mean_return`` of the trajectory it consumed (the reference's
+    ``learn_body``)."""
+
+    def collect_half(state):
+        params, env_carry, _ = state
+        env_carry, traj = rollout(params, env_carry)
+        return (params, env_carry, traj), {}
+
+    def learn_half(state):
+        params, opt_state, plane_state = state
+        traj = traj_box[0]
+        params, opt_state, plane_state, metrics = train_step(
+            params, opt_state, plane_state, traj)
+        metrics = dict(metrics)
+        metrics["mean_return"] = trajectory.episode_returns(traj)
+        return (params, opt_state, plane_state), metrics
+
+    return FusedEngine(collect_half), FusedEngine(learn_half)

@@ -1,7 +1,8 @@
-"""WALL-E's agent processor (port of ``repro/core/orchestrator.py``; the
-overlap schedule is in ROADMAP.md).
+"""WALL-E's agent processor (port of ``repro/core/orchestrator.py``).
 
-* ``SyncRunner`` — collect (via a backend) -> learn -> repeat.
+* ``SyncRunner`` — collect (via a backend) -> learn -> repeat; with
+  ``overlap=True`` the collect of iteration k+1 runs while the learn of
+  iteration k does (``tree_ready``, ``OverlapClock``).
 * ``AsyncOrchestrator`` — the paper's architecture: N samplers generate
   experience with the freshest published policy (maybe stale) while a
   learner consumes it and publishes new parameters. The samplers are
@@ -10,8 +11,19 @@ overlap schedule is in ROADMAP.md).
 
 Both assemble their ``IterationLog`` through ``assemble_log`` and
 ``record_log``, so the collect/learn accounting has one definition. Every
-timed phase ends in a device barrier, so ``collect_time``/``learn_time``
-measure the work and not its launches.
+timed phase ends in a barrier on its own stream
+(``timing.stream_synchronize``), so ``collect_time``/``learn_time``
+measure the work and not its launches, and under overlap neither phase
+waits for the other.
+
+The overlap schedule on the card is two CUDA streams: the learn is issued
+on a learner stream from a learner thread (its host launches run while the
+main thread drives the collect), the collect on a collect stream from the
+main thread, and an event recorded at the end of the learn tells
+``tree_ready`` whether it had finished when the collect did. The learners
+update their params in place, so the collect acts with a static copy of
+the params taken before the learn is issued (``queues.refresh``), never
+with the tensors the learn writes.
 """
 from __future__ import annotations
 
@@ -19,6 +31,7 @@ import dataclasses
 import queue as _queue
 import threading
 import time
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -30,8 +43,15 @@ from repro_torch.core.backends import (
     timed_rollout,
     to_device,
 )
-from repro_torch.core.queues import Experience, ExperienceQueue, PolicyStore
-from repro_torch.core.timing import PhaseTimer, synchronize
+from repro_torch.core.queues import (
+    Experience,
+    ExperienceQueue,
+    PolicyStore,
+    refresh,
+    snapshot,
+    state_tensors,
+)
+from repro_torch.core.timing import PhaseTimer, on_stream, stream_synchronize
 from repro_torch.data import trajectory
 
 
@@ -53,7 +73,10 @@ class IterationLog:
     #                                   worker loop time, this iteration
     respawns: int = 0            # supervised worker respawns, cumulative
     active_workers: int = 0      # process pool size this iteration
-    overlap_saved_s: float = 0.0
+    overlap_saved_s: float = 0.0  # overlap: learn seconds hidden under the
+    #                               next collect (0 on serial iterations);
+    #                               learn_time is then the exposed learn, so
+    #                               collect + learn + saved ~ the serial wall
 
     def as_dict(self) -> Dict[str, Any]:
         return dataclasses.asdict(self)
@@ -61,12 +84,12 @@ class IterationLog:
 
 def timed_train_step(train_step: Callable, params, opt_state, plane_state,
                      merged):
-    """One observe -> sample -> learn step, finished on the device and
-    timed."""
+    """One observe -> sample -> learn step, finished on the current stream
+    and timed."""
     t0 = time.perf_counter()
     params, opt_state, plane_state, metrics = train_step(
         params, opt_state, plane_state, merged)
-    synchronize(merged["rewards"].device)
+    stream_synchronize(merged["rewards"].device)
     return params, opt_state, plane_state, metrics, time.perf_counter() - t0
 
 
@@ -77,7 +100,8 @@ def assemble_log(iteration: int, per_sampler_seconds: Sequence[float],
                  queue_drops: int = 0,
                  worker_utilization: float = 1.0,
                  respawns: int = 0,
-                 active_workers: int = 0) -> IterationLog:
+                 active_workers: int = 0,
+                 overlap_saved_s: float = 0.0) -> IterationLog:
     """The single definition of per-iteration accounting (sync and
     async)."""
     return IterationLog(
@@ -93,7 +117,71 @@ def assemble_log(iteration: int, per_sampler_seconds: Sequence[float],
         worker_utilization=worker_utilization,
         respawns=respawns,
         active_workers=active_workers,
+        overlap_saved_s=overlap_saved_s,
     )
+
+
+def tree_ready(tree) -> bool:
+    """True iff everything in ``tree`` has finished: a non-blocking probe
+    the overlap schedule uses to tell whether the learn in flight was still
+    running when the concurrent collect finished (the reference's
+    ``jax.Array.is_ready`` over the learn's outputs).
+
+    A ``torch.cuda.Event`` is ready once the work recorded before it has
+    run (``query``), a ``Future`` once its thread has returned (``done``);
+    tensors on the CPU, host values and ``None`` are ready. A CUDA tensor
+    cannot tell: probe the event recorded after the work that writes it
+    (a ``TypeError`` otherwise)."""
+    if tree is None:
+        return True
+    if isinstance(tree, (list, tuple)):
+        return all(tree_ready(x) for x in tree)
+    if isinstance(tree, dict):
+        return all(tree_ready(x) for x in tree.values())
+    if isinstance(tree, Future):
+        return tree.done()
+    if isinstance(tree, torch.cuda.Event):
+        return bool(tree.query())
+    if isinstance(tree, torch.Tensor) and tree.device.type != "cpu":
+        raise TypeError("tree_ready cannot probe a device tensor; pass the "
+                        "torch.cuda.Event recorded after the work that "
+                        "writes it")
+    return True
+
+
+class OverlapClock:
+    """Accounting for the pipelined schedule (the reference's).
+
+    ``overlap_saved_s`` is the learn wall-clock hidden under the concurrent
+    collect, i.e. serial schedule minus pipelined schedule for this
+    iteration. Two cases at the moment the collect returns:
+
+    * the learn is **not** finished -> it ran under the entire collect,
+      so the hidden portion is the whole collect duration;
+    * the learn **is** finished -> the hidden portion is the learn's own
+      duration, estimated by ``learn_ref`` — the fastest *serial* learn
+      observed during warmup (after the first iteration, which builds
+      what it needs, so it is a clean reference), capped by the collect
+      duration.
+    """
+
+    def __init__(self):
+        self.learn_ref: Optional[float] = None
+
+    def note_serial(self, learn_s: float) -> None:
+        self.learn_ref = (learn_s if self.learn_ref is None
+                          else min(self.learn_ref, learn_s))
+
+    def saved(self, collect_s: float, learn_ready: bool) -> float:
+        if not learn_ready:
+            return collect_s
+        ref = self.learn_ref if self.learn_ref is not None else collect_s
+        return min(ref, collect_s)
+
+
+# serial iterations before the overlap schedule pipelines: the first builds
+# what it needs, the second gives the clock its serial learn reference
+OVERLAP_WARMUP = 2
 
 
 def record_log(logs: List[IterationLog], timer: PhaseTimer,
@@ -105,10 +193,38 @@ def record_log(logs: List[IterationLog], timer: PhaseTimer,
 
 class SyncRunner(BackendCloseMixin):
     """collect (backend) -> train step -> repeat, owning the plane state
-    ``(buffer_state, generator)`` explicitly."""
+    ``(buffer_state, generator)`` explicitly.
+
+    Overlap (``overlap=True``, needs the train step): after two serial
+    warm-up iterations (the first builds what it needs, the second gives
+    the clock its serial learn reference), learn k is issued without
+    waiting for it and collect k+1 runs while it executes, acting with the
+    params learn k starts from: one version stale, stamped
+    ``staleness=1.0`` on the iteration that consumes it.
+    ``IterationLog.overlap_saved_s`` is the learn time hidden under the
+    collect (``OverlapClock``) and ``learn_time`` the exposed rest of the
+    window. Runs of at most two iterations equal the serial schedule bit
+    for bit.
+
+    Issuing without waiting: the learn runs in a learner thread, on a
+    learner stream on the card, while the main thread drives the collect
+    on a collect stream. The learn reads the trajectory the collect stream
+    made after that stream's work so far (``wait_stream``), and each leaf
+    is marked used by the learner stream (``record_stream``), so the
+    allocator never hands its memory back to the collect while the learn
+    reads it. The collect acts with ``_collect_params``, a static copy of
+    the params refreshed on the collect stream before the learn is issued:
+    never the tensors the learn updates in place. The process backend
+    publishes that copy to its workers.
+    """
 
     def __init__(self, backend, train_step: Callable, params: Any,
-                 opt_state: Any, plane_state: Any = None):
+                 opt_state: Any, plane_state: Any = None,
+                 overlap: bool = False):
+        if overlap and train_step is None:
+            raise ValueError(
+                "overlap=True requires the experience-plane train_step "
+                "(the raw learn path has no buffer to double-buffer)")
         self.backend = backend
         self._train_step = train_step
         self.params = params
@@ -117,8 +233,18 @@ class SyncRunner(BackendCloseMixin):
         self.num_samplers = backend.num_samplers
         self.timer = PhaseTimer()
         self.logs: List[IterationLog] = []
+        self.overlap = overlap
+        self._overlap_clock = OverlapClock()
+        # iterations of the pipeline's lifetime: the warm-up is paid once
+        # per runner, not once per run() call
+        self._overlap_done = 0
+        self._collect_params = None
+        self._learner: Optional[ThreadPoolExecutor] = None
+        self._streams = None        # (collect, learn) on the card
 
     def run(self, iterations: int) -> List[IterationLog]:
+        if self.overlap:
+            return self._run_overlapped(iterations)
         for it in range(iterations):
             merged, stats = self.backend.collect(self.params)
             (self.params, self.opt_state, self.plane_state, _,
@@ -132,7 +258,114 @@ class SyncRunner(BackendCloseMixin):
                                     active_workers=stats.active_workers))
         return self.logs
 
+    # ----------------------------------------------------------- overlap
+    def _learn(self, merged, stream, done):
+        """The learner thread's body: the train step issued on ``stream``,
+        then ``done`` recorded there."""
+        with on_stream(stream):
+            out = self._train_step(self.params, self.opt_state,
+                                   self.plane_state, merged)
+            if done is not None:
+                done.record(stream)
+        return out
+
+    def _issue_learn(self, merged):
+        """Issue the learn on ``merged`` without waiting for it: ``(future,
+        event)``, ready (``tree_ready``) once the learner thread has issued
+        all of it and the card has run it."""
+        stream = self._streams[1] if self._streams else None
+        done = None
+        if stream is not None:
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+            for leaf in merged.values():
+                leaf.record_stream(stream)
+            done = torch.cuda.Event()
+        return (self._learner.submit(self._learn, merged, stream, done),
+                done)
+
+    def _join_learn(self, pending) -> None:
+        future, done = pending
+        (self.params, self.opt_state, self.plane_state,
+         _) = future.result()
+        if done is not None:
+            done.synchronize()
+
+    def _stale_params(self):
+        """The params the next learn starts from, copied into the static
+        ``_collect_params`` on the current (collect) stream."""
+        if self._collect_params is None:
+            self._collect_params = snapshot(self.params)
+        else:
+            refresh(self._collect_params, self.params)
+        return self._collect_params
+
+    def _run_overlapped(self, iterations: int) -> List[IterationLog]:
+        """The pipeline: issue learn k, run collect k+1 while it executes,
+        then wait for it. The first ``OVERLAP_WARMUP`` iterations stay
+        serial."""
+        clock = self._overlap_clock
+        if self._learner is None:
+            self._learner = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="learner")
+            device = state_tensors(self.params)[0].device
+            if device.type == "cuda":
+                self._streams = (torch.cuda.Stream(device),
+                                 torch.cuda.Stream(device))
+        caller = None
+        if self._streams:
+            caller = torch.cuda.current_stream(self._streams[0].device)
+            for stream in self._streams:
+                stream.wait_stream(caller)
+        pending = None          # (merged, stats, staleness) pre-collected
+        with on_stream(self._streams[0] if self._streams else None):
+            for it in range(iterations):
+                if pending is None:
+                    merged, stats = self.backend.collect(self.params)
+                    stale = 0.0
+                else:
+                    merged, stats, stale = pending
+                    pending = None
+                warm, self._overlap_done = (self._overlap_done,
+                                            self._overlap_done + 1)
+                saved = 0.0
+                if warm < OVERLAP_WARMUP:
+                    t0 = time.perf_counter()
+                    self._join_learn(self._issue_learn(merged))
+                    learn_time = time.perf_counter() - t0
+                    if warm > 0:    # iteration 0 builds what it needs
+                        clock.note_serial(learn_time)
+                else:
+                    # the collect acts with p_k, copied before learn k is
+                    # issued: the one-version-stale policy by construction
+                    params_k = (self._stale_params()
+                                if it + 1 < iterations else None)
+                    t0 = time.perf_counter()
+                    learning = self._issue_learn(merged)
+                    if params_k is not None:
+                        nxt, nstats = self.backend.collect(params_k)
+                        saved = clock.saved(max(nstats.per_sampler_seconds),
+                                            tree_ready(learning))
+                        pending = (nxt, nstats, 1.0)
+                    self._join_learn(learning)
+                    # the window spans the overlapped collect; less the
+                    # hidden part it leaves the exposed learn, so per
+                    # iteration collect + learn + saved ~ the serial wall
+                    learn_time = max(0.0, time.perf_counter() - t0 - saved)
+                record_log(self.logs, self.timer,
+                           assemble_log(it, stats.per_sampler_seconds,
+                                        learn_time, merged, stats.samples,
+                                        staleness=stale,
+                                        respawns=stats.respawns,
+                                        active_workers=stats.active_workers,
+                                        overlap_saved_s=saved))
+        if caller is not None:
+            for stream in self._streams:
+                caller.wait_stream(stream)
+        return self.logs
+
     def close(self) -> None:
+        if self._learner is not None:
+            self._learner.shutdown(wait=True)
         self.backend.close()
 
 

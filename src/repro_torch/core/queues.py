@@ -11,7 +11,11 @@ The reference's params are immutable arrays, so its store can hold the
 learner's own. The port's learners update their parameters in place
 (``optim.apply_updates``, the SAC and DDPG target updates), so ``publish``
 stores a snapshot (``snapshot``): sampler threads never act with weights
-that the learner is changing mid-rollout.
+that the learner is changing mid-rollout. ``refresh`` copies the params
+into a snapshot made earlier, so a collect can act with a static copy
+(the overlap schedule's, ``orchestrator.SyncRunner`` and
+``fused.FusedRunner``); ``state_tensors`` and ``state_generators`` walk
+such a state (params, optimizer state, carries) in a fixed order.
 """
 from __future__ import annotations
 
@@ -42,6 +46,57 @@ def snapshot(params: Any) -> Any:
     if isinstance(params, (list, tuple)):
         return type(params)(snapshot(v) for v in params)
     return params
+
+
+def _walk(x, tensors: List[torch.Tensor], generators: List[torch.Generator]):
+    """Collect the tensors of a state in a fixed order (a module's
+    parameters and buffers, a sequence's or a dict's entries in order) and
+    its generators."""
+    if isinstance(x, torch.Tensor):
+        tensors.append(x)
+    elif isinstance(x, torch.Generator):
+        generators.append(x)
+    elif isinstance(x, torch.nn.Module):
+        tensors.extend(x.parameters())
+        tensors.extend(x.buffers())
+    elif isinstance(x, dict):
+        for v in x.values():
+            _walk(v, tensors, generators)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            _walk(v, tensors, generators)
+    elif isinstance(x, bool):
+        pass    # host state (a ring's ``filled``): the first iteration's stays
+    elif x is not None:
+        raise TypeError(f"a state holds only tensors, modules, "
+                        f"generators and containers of them; got "
+                        f"{type(x).__name__}")
+
+
+def state_tensors(state) -> List[torch.Tensor]:
+    tensors: List[torch.Tensor] = []
+    _walk(state, tensors, [])
+    return tensors
+
+
+def state_generators(state) -> List[torch.Generator]:
+    generators: List[torch.Generator] = []
+    _walk(state, [], generators)
+    return generators
+
+
+def refresh(dst: Any, src: Any) -> Any:
+    """Copy every tensor of ``src`` into the matching tensor of ``dst`` (a
+    ``snapshot`` of something shaped like ``src``), in place, on the
+    current stream; returns ``dst``."""
+    to, frm = state_tensors(dst), state_tensors(src)
+    if len(to) != len(frm):
+        raise ValueError(f"refresh: the snapshot holds {len(to)} tensors, "
+                         f"the params {len(frm)}")
+    with torch.no_grad():
+        for d, s in zip(to, frm):
+            d.copy_(s)
+    return dst
 
 
 class PolicyStore:

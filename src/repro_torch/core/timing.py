@@ -1,22 +1,42 @@
 """Phase timers for the collection-vs-learning split (port of
-``repro/core/timing.py``), and the device barrier every phase timer
-needs."""
+``repro/core/timing.py``), and the device barriers a phase timer needs.
+
+A timed phase ends in ``stream_synchronize``: it waits for the work of its
+own stream only. Under the overlap schedule the collect and the learn run
+at once on two streams, and a barrier over the whole device
+(``synchronize``) would make each phase wait for the other.
+"""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work. PyTorch returns from a CUDA call
-    before the card has finished, so a host clock read without this
-    measures only the launches (the reference's ``block_until_ready``)."""
+    """Wait for all the device's queued work, on every stream. PyTorch
+    returns from a CUDA call before the card has finished, so a host clock
+    read without a barrier measures only the launches (the reference's
+    ``block_until_ready``)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def stream_synchronize(device: torch.device) -> None:
+    """Wait for the work queued on this thread's current stream of
+    ``device``, and for nothing else."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+
+
+def on_stream(stream: Optional["torch.cuda.Stream"]):
+    """``torch.cuda.stream(stream)``, or nothing for ``None`` (the CPU)."""
+    return (contextlib.nullcontext() if stream is None
+            else torch.cuda.stream(stream))
 
 
 @dataclasses.dataclass

@@ -15,8 +15,11 @@ Ported so far: runtimes ``sync``, ``async`` and ``fused``, backends
 ``sac``, buffers ``fifo``, ``uniform`` and ``prioritized`` (with
 ``buffer_kwargs``), envs ``pendulum``, ``cartpole`` and ``cheetah``, with
 ``num_samplers × global_batch`` or ``env_batch`` collection; staleness
-correction, fault injection and elastic worker fleets. Anything else is
-rejected with a message naming ROADMAP.md, never ignored.
+correction, fault injection and elastic worker fleets; the overlap schedule
+(``schedule.overlap``: collect k+1 under learn k) on the sync and fused
+runtimes. Anything else is rejected with a message naming ROADMAP.md,
+never ignored: overlap over a learner mesh too (the reference's
+``offset=1`` mesh and ``pin_params``), with the sharded learner.
 
 The actor plane: ``backend="process"`` (``schedule.num_workers`` workers,
 default ``num_samplers``) collects with worker processes, each rebuilt from
@@ -210,13 +213,19 @@ def _validate(spec: ExperimentSpec) -> None:
             "schedule.env_batch selects vector collection (one VectorEnv "
             "batch, a single carry); the process backend splits the batch "
             "across workers: use num_samplers × global_batch for it")
+    if sched.overlap and spec.runtime == "async":
+        raise ValueError(
+            "schedule.overlap pipelines the sync/fused loop; the async "
+            "runtime's free-running samplers already overlap collect "
+            "with learn by construction — drop overlap or use "
+            "runtime='sync'")
     if int(sched.learner_devices or 1) > 1 or sched.learner_microbatches > 1:
-        raise _not_ported("the sharded learner (learner_devices / "
-                          "learner_microbatches)")
+        raise _not_ported(
+            "the sharded learner (learner_devices / learner_microbatches)"
+            + (", and the overlap schedule over a learner mesh"
+               if sched.overlap else ""))
     if sched.fsdp or sched.learner_pods > 1:
         raise _not_ported("fsdp / learner_pods")
-    if sched.overlap:
-        raise _not_ported("the overlap schedule")
 
 
 def _resolve_buffer(spec: ExperimentSpec, algo):
@@ -296,7 +305,8 @@ def build(spec: ExperimentSpec, device=None):
         return FusedRunner(env, None, params, opt_state, carry,
                            horizon=sched.horizon, chunk=sched.chunk,
                            rollout=algo.make_rollout(env, sched.horizon),
-                           train_step=train_step, plane_state=plane_state)
+                           train_step=train_step, plane_state=plane_state,
+                           overlap=sched.overlap)
     if vector:
         seeds, per = [sched.seed], env.batch
     else:
@@ -321,7 +331,7 @@ def build(spec: ExperimentSpec, device=None):
     backend = registry.make("backend", spec.backend, rollout=rollout,
                             carries=carries)
     return SyncRunner(backend, train_step, params, opt_state,
-                      plane_state=plane_state)
+                      plane_state=plane_state, overlap=sched.overlap)
 
 
 def _build_process(spec: ExperimentSpec, device, seeds, per: int,
@@ -370,7 +380,7 @@ def _build_process(spec: ExperimentSpec, device, seeds, per: int,
                             params=params, device=device,
                             fault_plan=fault_plan, supervisor_cfg=sup_cfg)
     return SyncRunner(backend, train_step, params, opt_state,
-                      plane_state=plane_state)
+                      plane_state=plane_state, overlap=sched.overlap)
 
 
 def run(spec: ExperimentSpec, iterations: Optional[int] = None,

@@ -4,8 +4,10 @@ path, each beside its plain PyTorch version, selected by
 
 ``KERNELS`` maps each kernel to its wrapper; a wrapper's ``launches``
 attribute counts the launches of its kernel, so a run can show that it went
-through the kernels.
+through the kernels. The counts change only under ``kernels.counts``'s
+lock, so launches from several threads are all counted.
 """
+from repro_torch.kernels import counts
 from repro_torch.kernels.decode_attention.ops import (  # noqa: F401
     decode_attention_cuda,
 )
@@ -55,17 +57,16 @@ KERNELS = {
 
 
 def reset_launch_counts() -> None:
-    for wrapper in KERNELS.values():
-        wrapper.launches = 0
+    counts.reset(KERNELS.values())
 
 
 def launch_counts() -> dict:
-    return {name: wrapper.launches for name, wrapper in KERNELS.items()}
+    return counts.read(KERNELS)
 
 
-def add_launches(counts: dict) -> None:
-    """Add ``counts`` (kernel name -> launches) to the wrappers' counts: a
+def add_launches(added: dict) -> None:
+    """Add ``added`` (kernel name -> launches) to the wrappers' counts: a
     CUDA-graph replay launches the kernels its capture recorded without
     calling a wrapper (``core/fused.py``)."""
-    for name, n in counts.items():
-        KERNELS[name].launches += n
+    for name, n in added.items():
+        counts.add(KERNELS[name], n)

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -38,6 +39,10 @@ FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# held while a library is built and loaded: threads that launch at once
+# (a learner thread beside the collect, sampler threads) on a cold cache
+# must not start two ``nvcc`` runs into one temporary file
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -111,7 +116,10 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name, nvcc_path())))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build_all([name])
+                lib = ctypes.CDLL(str(_lib_path(name, nvcc_path())))
+                _loaded[name] = lib
     return lib

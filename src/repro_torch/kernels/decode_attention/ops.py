@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.decode_attention.ref import decode_ref
 
 HEAD_DIMS = (32, 64, 128)
@@ -126,7 +126,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {rc}")
-    decode_attention_cuda.launches += 1
+    counts.add(decode_attention_cuda)
     return o
 
 

@@ -24,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.env_step import ref
 
 ENV_NAMES: Tuple[str, ...] = tuple(ref.STEP_BATCH_REF)
@@ -94,7 +94,7 @@ def pendulum_step_cuda(state, actions, reset_state, reset_obs, *,
         3.0 / (ref.PENDULUM_M * ref.PENDULUM_L ** 2),
         stream.current(dev))
     _raise_on(rc, "pendulum_step")
-    pendulum_step_cuda.launches += 1
+    counts.add(pendulum_step_cuda)
     return (oth, otd, ot), obs, rew, done
 
 
@@ -135,7 +135,7 @@ def cartpole_step_cuda(state, actions, reset_state, reset_obs, *,
         ref.CARTPOLE_X_LIMIT, ref.CARTPOLE_TH_LIMIT,
         stream.current(dev))
     _raise_on(rc, "cartpole_step")
-    cartpole_step_cuda.launches += 1
+    counts.add(cartpole_step_cuda)
     return out_state, obs, rew, done
 
 
@@ -174,7 +174,7 @@ def cheetah_step_cuda(state, actions, reset_state, reset_obs, *,
         int(max_episode_steps), float(ctrl_cost), float(reward_scale),
         stream.current(dev))
     _raise_on(rc, "cheetah_step")
-    cheetah_step_cuda.launches += 1
+    counts.add(cheetah_step_cuda)
     return (oth, oom, ovx, opi, ot), obs, rew, done
 
 

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (32, 64, 128)
@@ -121,7 +121,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: "
                            f"cudaError {rc}")
-    flash_attention_cuda.launches += 1
+    counts.add(flash_attention_cuda)
     return o
 
 

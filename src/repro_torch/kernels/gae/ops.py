@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.gae.ref import discounted_returns_ref, gae_ref
 
 
@@ -78,7 +78,7 @@ def gae_cuda(rewards: torch.Tensor, values: torch.Tensor,
                     stream.current(dev))
     if rc != 0:
         raise RuntimeError(f"gae kernel launch failed: cudaError {rc}")
-    gae_cuda.launches += 1
+    counts.add(gae_cuda)
     return adv, ret
 
 
@@ -107,7 +107,7 @@ def discounted_returns_cuda(rewards: torch.Tensor, dones: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"discounted_returns kernel launch failed: cudaError {rc}")
-    discounted_returns_cuda.launches += 1
+    counts.add(discounted_returns_cuda)
     return ret
 
 

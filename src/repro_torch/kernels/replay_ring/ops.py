@@ -34,7 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.replay_ring.ref import ring_gather_ref, ring_insert_ref
 
 MAX_LEAVES = 16          # kMaxLeaves of csrc/replay_ring.cu
@@ -239,7 +239,7 @@ def ring_insert_cuda(storage: Dict[str, torch.Tensor],
         table.buffer_info()[0], len(spans), start.data_ptr(),
         max(0, n - leaves.cap), leaves.cap, stream.current(leaves.device)),
         "ring_insert")
-    ring_insert_cuda.launches += 1
+    counts.add(ring_insert_cuda)
     return storage
 
 
@@ -268,7 +268,7 @@ def ring_gather_cuda(storage: Dict[str, torch.Tensor], idx: torch.Tensor
             table.buffer_info()[0], len(table) // 3, buf.data_ptr(),
             idx.data_ptr(), leaves.cap, rows, stream.current(leaves.device)),
             "ring_gather")
-        ring_gather_cuda.launches += 1
+        counts.add(ring_gather_cuda)
     return dict(zip(storage, gather_views(buf, views)))
 
 

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 MAX_STATE = 16          # 4 lanes of 4 states per channel
@@ -106,7 +106,7 @@ def selective_scan_cuda(dt: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"selective_scan kernel launch failed: "
                            f"cudaError {rc}")
-    selective_scan_cuda.launches += 1
+    counts.add(selective_scan_cuda)
     return y, h_final
 
 

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, select, stream
+from repro_torch.kernels import build, counts, select, stream
 from repro_torch.kernels.sum_tree.ref import (  # noqa: F401
     SumTree,
     level_offsets,
@@ -92,7 +92,7 @@ def sumtree_find_cuda(tree: SumTree, masses: torch.Tensor) -> torch.Tensor:
                              out.data_ptr(), cap, cap.bit_length() - 1, B,
                              stream.current(dev))
     _raise_on(rc, "sumtree_find")
-    sumtree_find_cuda.launches += 1
+    counts.add(sumtree_find_cuda)
     return out
 
 
@@ -120,7 +120,7 @@ def sumtree_update_cuda(tree: SumTree, idx: torch.Tensor,
                                idx.data_ptr(), values.data_ptr(), cap,
                                cap.bit_length() - 1, B, stream.current(dev))
     _raise_on(rc, "sumtree_update")
-    sumtree_update_cuda.launches += 1
+    counts.add(sumtree_update_cuda)
     return tree
 
 

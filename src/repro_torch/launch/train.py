@@ -24,11 +24,20 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
       --algo {ppo,trpo,sac,ddpg} --backend fused --global-batch 160 \
       --horizon 125 --iterations 40 [--chunk 10] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
+      --backend {inline,threaded,process,fused} --overlap [--device cpu]
 
 ``--backend fused`` is the fused runtime: one carry of ``--global-batch``
 envs (or ``--env-batch``), each collect -> learn iteration one CUDA-graph
 replay on the card, ``--chunk`` iterations between host syncs (default:
 all of them).
+
+``--overlap`` (sync and fused runtimes): after two serial iterations,
+iteration k+1's collect runs while iteration k's learn does, with the
+params that learn starts from (``staleness`` 1.0 on the iteration that
+consumes it; ``overlap_saved_s`` the learn seconds hidden). On the card the
+two halves run on two CUDA streams; the fused runtime replays a collect
+graph and a learn graph, and ignores ``--chunk``.
 
 Algos: ``ppo`` and ``trpo`` (on-policy, the ``fifo`` buffer), ``sac`` and
 ``ddpg`` (replay, ``uniform`` or ``prioritized``). Envs: ``pendulum``,
@@ -89,6 +98,7 @@ def spec_from_args(args) -> ExperimentSpec:
             min_batches_per_update=args.min_batches_per_update,
             env_batch=args.env_batch,
             chunk=args.chunk,
+            overlap=args.overlap,
             max_respawns=args.max_respawns,
             min_workers=args.min_workers,
             max_workers=args.max_workers,
@@ -133,7 +143,8 @@ def main(argv=None) -> experiment.ExperimentResult:
     ap.add_argument("--horizon", type=int, default=128)
     ap.add_argument("--chunk", type=int, default=None,
                     help="fused runtime (--backend fused): iterations "
-                         "between host syncs (default: all of them)")
+                         "between host syncs (default: all of them; "
+                         "ignored under --overlap)")
     ap.add_argument("--iterations", type=int, default=10)
     ap.add_argument("--hidden", type=int, default=64)
     ap.add_argument("--lr", type=float, default=None)
@@ -143,6 +154,12 @@ def main(argv=None) -> experiment.ExperimentResult:
                     help="'cuda' (or 'auto', 'pallas'): the CUDA kernels "
                          "on a CUDA device; "
                          "'ref': the plain PyTorch versions")
+    ap.add_argument("--overlap", action="store_true",
+                    help="double-buffered pipeline: dispatch iteration "
+                         "k's learn and run iteration k+1's collect "
+                         "while it executes (sync/fused runtimes; "
+                         "IterationLog.overlap_saved_s reports the "
+                         "hidden learn time)")
     ap.add_argument("--async", dest="async_mode", action="store_true",
                     help="free-running samplers (threads, or worker "
                          "processes with --backend process) and a learner "

@@ -169,9 +169,13 @@ def test_add_launches_adds_to_the_wrappers_counts():
 
 
 def test_fused_runner_rejects_overlap_naming_the_roadmap():
-    env, learn, *state = _fresh()
+    """The fused runtime's overlap over a learner mesh (the reference's
+    ``offset=1`` mesh and ``pin_params``) waits for the distributed
+    learner: rejected by name."""
+    spec = ExperimentSpec(env="pendulum", algo="ppo", runtime="fused",
+                          schedule=Schedule(overlap=True, learner_devices=2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FusedRunner(env, learn, *state, horizon=HORIZON, overlap=True)
+        build(spec, device="cpu")
 
 
 # ===================================================== the fused runtime

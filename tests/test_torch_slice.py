@@ -162,7 +162,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(runtime="fused", schedule=Schedule(overlap=True)),
+    dict(runtime="fused",
+         schedule=Schedule(overlap=True, learner_devices=2, fsdp=True)),
     dict(runtime="async", backend="threaded",
          schedule=Schedule(learner_devices=2)),
     dict(backend="process", schedule=Schedule(learner_microbatches=2)),
@@ -172,7 +173,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(runtime="async", backend="process", schedule=Schedule(fsdp=True)),
     dict(algo_kwargs={"aux_coef": 0.1}),
     dict(schedule=Schedule(learner_devices=2)),
-    dict(schedule=Schedule(overlap=True)),
+    # the reference's overlap over a learner mesh (offset=1, pin_params)
+    dict(schedule=Schedule(overlap=True, learner_devices=2)),
 ])
 def test_unported_choices_are_rejected(change):
     spec = ExperimentSpec(**{"env": "cheetah", **change})

@@ -22,7 +22,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    129, 1000 × B in 1, 31, 33, 160, 4096, 4097, with dones at no step, every
    step, t = 0 only, t = T - 1 only and 10 % at random; cheetah at B in 1,
    16, 31, 33, 4096, 4097 with no, every and a third of the episodes
-   ending); the replay ring (N > cap, wraparound, cap 1,
+   ending; pendulum and cart-pole at B in 1 ... 16,384 around their
+   warps and block sizes, alike, then with NaN in a few rows of every
+   float input and a reset obs that is not 16-byte aligned, then over all
+   2^32 float32 bit patterns as the angle: every leaf bit for bit, NaNs
+   by their bits); the replay ring (N > cap, wraparound, cap 1,
    float, bool, int, bfloat16 and zero-width rows, odd heads where source
    and destination differ mod 16 and mod 4) and the sum tree (capacities 1, 2, 1024 and
    2^20, zero-mass leaves, updates with duplicate indices) exactly; the LM
@@ -162,7 +166,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    ``scaled_dot_product_attention`` call (``enable_gqa``, the band or
    validity mask) on the same values in its own layout; the scan has none.
    Every entry also gives the kernels one call launches: the kernel nodes
-   of a CUDA graph that captured it. Before the kernels, a line of its own
+   of a CUDA graph that captured it. Pendulum and cart-pole are also
+   timed at B 16, 64, 160 and 4,096 with no, every and a third of the
+   episodes ending (``kernels_at_env_shapes``); outside
+   ``--timing-only``, the host time of each env-step wrapper's call at
+   B 16 and of each of its steps (leaf check, allocations, pointers and
+   argument block, ``ctypes`` call) is printed as an ``env_step_host_us``
+   line. Before the kernels, a line of its own
    gives the per-launch floor: ``zero_()`` of 16 floats, a library kernel
    that does next to nothing, timed as the kernels are (``launch_floor``).
    With ``--timing-only`` the script builds the kernels and runs this phase
@@ -271,7 +281,8 @@ CHEETAH_LEAVES = {"obs": (14,), "actions": (6,), "rewards": (),
 CAP = 1 << 20
 MAIN_SAMPLERS = (10, 16, 125)   # the main path: samplers, envs each, horizon
 # the timing lines besides the kernels line: shape label, JSON key
-TIMING_LINES = (("vector", "kernels_at_vector_shapes"),
+TIMING_LINES = (("env", "kernels_at_env_shapes"),
+                ("vector", "kernels_at_vector_shapes"),
                 ("ragged", "kernels_at_ragged_shapes"),
                 ("long", "kernels_at_long_request"),
                 ("falcon", "kernels_at_falcon_shapes"),
@@ -365,12 +376,20 @@ def gae_inputs(T, B, seed):
 
 
 # the redesigned kernels' tile edges: gae's 32-column blocks, 32-row
-# vector loads and 64-step chunks, cheetah's 5 envs a warp and 20 a block
+# vector loads and 64-step chunks, cheetah's 5 envs a warp and 20 a block,
+# pendulum's and cart-pole's warps and 256-thread blocks
 GAE_EDGE_T = (1, 31, 32, 33, 125, 128, 129, 1000)
 GAE_EDGE_B = (1, 31, 33, 160, 4096, 4097)
 GAE_DONES = ("none", "all", "t=0", "t=T-1", "10%")
 CHEETAH_EDGE_B = (1, 16, 31, 33, 4096, 4097)
 CHEETAH_ENDS = ("none", "all", "mixed")
+ENV_EDGE_B = (1, 16, 31, 32, 33, 64, 160, 255, 256, 257, 4096, 4097,
+              16384)
+# the env sweep of phase 6: pendulum and cart-pole at a sampler's 16 envs,
+# the fused learning run's 64, the fused carry's 160 and the vector 4,096
+ENV_TIMING_B = (16, 64, 160, 4096)
+# the trig sweep: every float32 bit pattern, in chunks
+SWEEP_CHUNK = 1 << 24
 
 
 def gae_edge_inputs(T, B, dones, seed):
@@ -390,14 +409,83 @@ def gae_edge_inputs(T, B, dones, seed):
     return r, v, d, lv
 
 
-def cheetah_edge_inputs(B, ends, horizon, seed):
-    """``env_inputs`` for cheetah with no, every or a third of the rows at
-    their last step."""
-    state, a, rs, ro, p = env_inputs("cheetah", B, horizon, seed)
+def env_edge_inputs(name, B, ends, horizon, seed):
+    """``env_inputs`` with no, every or a third of the rows at their last
+    step; cart-pole's "none" also keeps every cart and pole inside the
+    fall limits (|x| <= 2.3 and |th| <= 0.16 before a step of at most
+    0.04 and 0.04)."""
+    state, a, rs, ro, p = env_inputs(name, B, horizon, seed)
     if ends != "mixed":
-        t = state[4].fill_(horizon - 1 if ends == "all" else horizon - 2)
-        state = state[:4] + (t,)
+        state[-1].fill_(horizon - 1 if ends == "all" else horizon - 2)
+    if name == "cartpole" and ends == "none":
+        state[0].mul_(2.3 / 2.5)
+        state[2].mul_(0.16 / 0.25)
     return state, a, rs, ro, p
+
+
+def bits(x):
+    """A float32 tensor's bits as int32 (NaNs compare by their bits)."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def same_bits(label, got, want):
+    """Every leaf of two env-step results equal bit for bit."""
+    for k, (g, w) in enumerate(zip(leaves(got), leaves(want))):
+        assert g.dtype == w.dtype and g.shape == w.shape, (label, k)
+        assert torch.equal(bits(g), bits(w)), (
+            f"{label} leaf {k}: {int((bits(g) != bits(w)).sum())} "
+            f"elements differ")
+
+
+def sweep_inputs(name, lo, n, horizon):
+    """Float bit patterns lo ... lo + n - 1 as pendulum's next angle or
+    cart-pole's angle, no episode ending by time. Pendulum: th = x, u = -0
+    and thdot = -y for y = (15 sin x + 3 u) 0.05, the kernel's and the
+    plain version's own increment, so the stepped thdot is +0 and the next
+    angle x exactly (y = -0 keeps thdot -0, so that -0 stays -0): the obs
+    are cos x and sin x. Cart-pole: th = x, the rest 0; a pole past the
+    fall limit takes its reset candidates, so there the trig shows only
+    inside the limits."""
+    x = (torch.arange(lo, lo + n, device="cuda", dtype=torch.int64)
+         .to(torch.int32).view(torch.float32))
+    z = torch.zeros(n, device="cuda")
+    t = torch.zeros(n, dtype=torch.int32, device="cuda")
+    if name == "pendulum":
+        u = torch.full((n, 1), -0.0, device="cuda")
+        y = (15.0 * torch.sin(x) + 3.0 * u[:, 0]) * 0.05
+        state = (x, torch.where(y == 0, y, -y), t)
+        return state, u, (z, z, t), torch.zeros(n, 3, device="cuda"), dict(
+            max_torque=2.0)
+    state = (z, z, x, z, t)
+    return state, torch.zeros(n, 1, device="cuda"), (z, z, z, z, t), \
+        torch.zeros(n, 4, device="cuda"), dict(force_max=10.0)
+
+
+def check_trig_sweep():
+    """Pendulum and cart-pole over every float32 bit pattern (``sweep_
+    inputs``: subnormals, +-0, the trig's slow path past |x| = 105,615,
+    +-inf and NaNs included), every leaf bit for bit against the plain
+    version; pendulum's obs carry sincosf's cos and sin of every finite
+    angle against ATen's cos and sin."""
+    from repro_torch.kernels.env_step import ops as env_ops
+    from repro_torch.kernels.env_step import ref as env_ref
+    horizon, t0 = 50, time.perf_counter()
+    for name in ("pendulum", "cartpole"):
+        wrapper = env_ops.STEP_BATCH_CUDA[name]
+        for lo in range(-(1 << 31), 1 << 31, SWEEP_CHUNK):
+            state, a, rs, ro, p = sweep_inputs(name, lo, SWEEP_CHUNK,
+                                               horizon)
+            params = dict(max_episode_steps=horizon, reward_scale=1.0, **p)
+            got = wrapper(state, a, rs, ro, **params)
+            want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro, **params)
+            if name == "pendulum":      # the next angle is x itself
+                fin = torch.isfinite(state[0])
+                assert torch.equal(bits(want[0][0])[fin],
+                                   bits(state[0])[fin])
+            same_bits(f"{name} sweep from {lo}", got, want)
+    log(f"check the trig sweep: pendulum and cart-pole over all 2^32 "
+        f"float32 patterns, every leaf bit for bit "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 def check_rl_edges():
@@ -426,8 +514,8 @@ def check_rl_edges():
     horizon, n = 50, 0
     for B in CHEETAH_EDGE_B:
         for ends in CHEETAH_ENDS:
-            state, a, rs, ro, p = cheetah_edge_inputs(B, ends, horizon,
-                                                      seed=B + 5)
+            state, a, rs, ro, p = env_edge_inputs("cheetah", B, ends,
+                                                  horizon, seed=B + 5)
             params = dict(max_episode_steps=horizon, reward_scale=0.5, **p)
             before = env_ops.cheetah_step_cuda.launches
             got = env_ops.cheetah_step_cuda(state, a, rs, ro, **params)
@@ -442,6 +530,43 @@ def check_rl_edges():
             n += 1
     log(f"check cheetah_step at the tile edges: B in {CHEETAH_EDGE_B} x "
         f"episode ends {CHEETAH_ENDS}: {n} calls, every leaf bit for bit")
+    for name in ("pendulum", "cartpole"):
+        wrapper, n = env_ops.STEP_BATCH_CUDA[name], 0
+        for B in ENV_EDGE_B:
+            for ends in CHEETAH_ENDS:
+                state, a, rs, ro, p = env_edge_inputs(name, B, ends, horizon,
+                                                      seed=B + 6)
+                params = dict(max_episode_steps=horizon, reward_scale=0.5,
+                              **p)
+                before = wrapper.launches
+                got = wrapper(state, a, rs, ro, **params)
+                want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro,
+                                                    **params)
+                torch.cuda.synchronize()
+                assert wrapper.launches == before + 1
+                same_bits(f"{name} B={B} ends {ends}", got, want)
+                resets = int(got[3].sum())
+                assert resets == {"none": 0, "all": B}.get(ends, resets) and (
+                    ends != "mixed" or resets >= B // 3), (name, B, ends)
+                n += 1
+        # NaN in every input leaf of a few rows; a reset obs that is not
+        # 16-byte aligned (cart-pole's rows then move a float at a time)
+        state, a, rs, ro, p = env_edge_inputs(name, 4097, "mixed", horizon,
+                                              seed=7)
+        for leaf in (*state[:-1], a, *rs[:-1], ro):
+            leaf.view(-1)[torch.randperm(leaf.numel(), device="cuda")[:40]] \
+                = float("nan")
+        ro = torch.cat([torch.zeros(1, device="cuda"), ro.view(-1)])[1:] \
+            .view(ro.shape)
+        params = dict(max_episode_steps=horizon, reward_scale=1.0, **p)
+        got = wrapper(state, a, rs, ro, **params)
+        want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro, **params)
+        same_bits(f"{name} NaN rows, unaligned reset obs", got, want)
+        n += 1
+        log(f"check {name}_step at the block edges: B in {ENV_EDGE_B} x "
+            f"episode ends {CHEETAH_ENDS}, NaN rows and an unaligned reset "
+            f"obs: {n} calls, every leaf bit for bit")
+    check_trig_sweep()
 
 
 def ring_leaves(rows, gen, kinds=None):
@@ -1135,6 +1260,26 @@ def time_kernels():
             nbytes(r, d, lv, ret),
             lambda: gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99),
             lambda: gae_ops.discounted_returns_ref(r, d, lv, 0.99), 200, 5)
+    # pendulum and cart-pole at the batches of the stepped, fused and
+    # vector runs, with no, a third and every episode ending
+    for name in ("pendulum", "cartpole"):
+        wrapper = kernels.KERNELS[f"{name}_step"]
+        for B in ENV_TIMING_B:
+            for ends in CHEETAH_ENDS:
+                state, a, rs, ro, p = env_edge_inputs(name, B, ends, horizon,
+                                                      seed=7)
+                params = dict(max_episode_steps=horizon, reward_scale=1.0,
+                              **p)
+                out = wrapper(state, a, rs, ro, **params)
+                resets = int(out[3].sum())
+                shape = f"B={B} ends={ends}"
+                timings["env", (f"{name}_step", shape)] = measure(
+                    f"{name}_step", shape, B,
+                    nbytes(*state, a, *leaves(out))
+                    + nbytes(*rs, ro) * resets // B,
+                    lambda: wrapper(state, a, rs, ro, **params),
+                    lambda: env_ref.STEP_BATCH_REF[name](state, a, rs, ro,
+                                                         **params), 200, 50)
     # GAE at a batch that is not a multiple of 4, where the kernel loads
     # one float at a time
     T, gB = h, n * per + 3
@@ -1197,6 +1342,66 @@ def time_kernels():
     return timings
 
 
+# the steps of an env-step wrapper call, as ``log_host_parts`` names them
+HOST_PARTS = {"check": "_check", "allocations": "_outputs",
+              "pointers and argument block": "_pack", "ctypes call": "_call"}
+
+
+def log_host_parts(n=2000, rounds=7):
+    """One line, ``env_step_host_us``: the host microseconds of a wrapper
+    call at B 16 for each env (``n`` calls back to back on the host's
+    clock, median and least of ``rounds``), and of each of its steps
+    (``HOST_PARTS``), timed where the wrapper calls them: each step is
+    wrapped in a timer for a second run of ``n`` calls, which must call
+    it once a call."""
+    from repro_torch.kernels.env_step import ops as env_ops
+    report = {}
+    for name in ("pendulum", "cartpole", "cheetah"):
+        state, a, rs, ro, p = env_edge_inputs(name, 16, "mixed", 50, seed=7)
+        params = dict(max_episode_steps=50, reward_scale=1.0, **p)
+        wrapper = env_ops.STEP_BATCH_CUDA[name]
+        samples = {part: [] for part in ("whole call", *HOST_PARTS)}
+        for _ in range(rounds):
+            for _ in range(100):
+                wrapper(state, a, rs, ro, **params)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                wrapper(state, a, rs, ro, **params)
+            samples["whole call"].append(
+                (time.perf_counter() - t0) / n * 1e6)
+            torch.cuda.synchronize()
+            spent = dict.fromkeys(HOST_PARTS, 0.0)
+            calls = dict.fromkeys(HOST_PARTS, 0)
+            steps = {part: getattr(env_ops, fn)
+                     for part, fn in HOST_PARTS.items()}
+
+            def timed(part, step):
+                def run(*args):
+                    t0 = time.perf_counter()
+                    out = step(*args)
+                    spent[part] += time.perf_counter() - t0
+                    calls[part] += 1
+                    return out
+                return run
+            try:
+                for part, fn in HOST_PARTS.items():
+                    setattr(env_ops, fn, timed(part, steps[part]))
+                for _ in range(n):
+                    wrapper(state, a, rs, ro, **params)
+            finally:
+                for part, fn in HOST_PARTS.items():
+                    setattr(env_ops, fn, steps[part])
+            torch.cuda.synchronize()
+            assert all(c == n for c in calls.values()), (name, calls)
+            for part, sec in spent.items():
+                samples[part].append(sec / n * 1e6)
+        report[f"{name}_step"] = {
+            part: {"median": statistics.median(us), "least": min(us)}
+            for part, us in samples.items()}
+    log(json.dumps({"env_step_host_us": report}))
+
+
 def launch_floor():
     """The per-launch floor: one library kernel that does next to nothing
     (``zero_()`` of 16 floats), its device time from graph replay as
@@ -1211,9 +1416,9 @@ def launch_floor():
 def log_timings(timings, labels):
     """One JSON line per shape label: the kernels timed there."""
     for label, key in labels:
-        log(json.dumps({key: [{"name": name, **t}
-                              for (at, name), t in timings.items()
-                              if at == label]}))
+        log(json.dumps({key: [
+            {"name": name if isinstance(name, str) else name[0], **t}
+            for (at, name), t in timings.items() if at == label]}))
 
 
 # ------------------------------------------------------------------ main
@@ -2336,6 +2541,7 @@ def main(argv=None) -> int:
     phase_done("reference")
     launch_floor()
     timings = time_kernels()
+    log_host_parts()
     entries = []
     for name in kernels.KERNELS:
         entries.append({

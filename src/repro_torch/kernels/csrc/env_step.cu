@@ -7,36 +7,55 @@
 // then selects the reset candidates where the episode ended. The TPU kernels'
 // (leaf, B) lane tiles are not carried over: the public layout is kept, i.e.
 // state leaves (B,) or (B, 6), actions (B, act_dim), reset obs (B, obs_dim).
-// Pendulum and cart-pole take one thread per env, 256 a block. Cheetah takes
-// six lanes per env (one per joint, see cheetah_step_kernel), so that its
-// (B, 6) and (B, 14) leaves are read and written by consecutive lanes and a
-// batch of 4,096 spreads over the whole card, and so that the five thrust
-// sines of an env run side by side on five lanes.
 //
 // Bound on an H100: HBM bytes. Each instance reads its state and actions
 // once and writes its next state, obs, reward and done once (cheetah: 84 B
 // read + 121 B written; cart-pole: 24 B read + 41 B written; pendulum:
-// 16 B read + 29 B written); only an instance whose episode ended also
-// reads its reset candidates (cheetah 116 B, cart-pole 36 B, pendulum
-// 24 B). Against those bytes stand a few dozen float operations per
-// instance, far below the card's operations-per-byte balance. At the
-// batches the RL runs use (16 and 4,096 envs) the bytes take well under a
-// microsecond; what is left is the launch and one dependent chain of
-// loads, sines and stores per env, which the designs keep short.
+// 16 B read + 29 B written), and its reset candidates (cheetah 116 B where
+// its episode ended; cart-pole 36 B and pendulum 24 B on every row).
+// Against those bytes stand a few dozen float operations per instance, far
+// below the card's operations-per-byte balance. At the batches the RL runs
+// use (16 to 4,096 envs) the bytes take well under a microsecond; what is
+// left is the launch and one dependent chain of loads, sines and stores
+// per env, which the designs keep short:
+//
+// * pendulum and cart-pole: one thread per env, 256 a block. Every load is
+//   issued before any arithmetic, the reset candidates of every row too, so
+//   a row whose episode ends pays no second trip to memory; outputs are
+//   selected, never branched on. One range reduction per trig argument:
+//   sincosf, which gives the bits of sinf and cosf (held over all 2^32
+//   float32 inputs on the card). A cart-pole row of obs and of reset obs
+//   moves as one float4 (where both are 16-byte aligned; else four
+//   floats); a pendulum row is three floats a lane, and a warp's 32 rows
+//   one run of 384 bytes, which L2 merges. Blocks of 32 or 64 threads,
+//   blocks sized from B, reading the candidates only where an episode
+//   ends, and a warp's pendulum obs staged in shared memory all measured
+//   slower on the H100 (PERF.md).
+// * cheetah: six lanes per env (one per joint, see cheetah_step_kernel),
+//   so that its (B, 6) and (B, 14) leaves are read and written by
+//   consecutive lanes and a batch of 4,096 spreads over the whole card,
+//   and so that the five thrust sines of an env run side by side.
+//
+// Each entry point takes one packed argument block (the *Args structs; the
+// wrapper packs it with struct.pack in the same layout), so a launch
+// converts one ctypes argument.
 //
 // Built with -fmad=false: no FMA contraction, so results round like the
-// plain PyTorch version's separate elementwise ops. sinf/cosf are CUDA's
-// full-range versions (no fast math). Cart-pole's constants that the
-// reference folds in Python (total mass, pole mass x half-length, 4/3) and
-// its two fall limits arrive as floats rounded once from the host's double,
-// so every comparison and division is the float32 one of the plain version.
+// plain PyTorch version's separate elementwise ops. sinf/cosf/sincosf are
+// CUDA's full-range versions (no fast math); fmodf is exact. Cart-pole's
+// constants that the reference folds in Python (total mass, pole mass x
+// half-length, 4/3) and its two fall limits arrive as floats rounded once
+// from the host's double, so every comparison and division is the float32
+// one of the plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
 constexpr float kPi = 3.141592653589793f;
 constexpr float kTwoPi = 6.283185307179586f;
+constexpr int kThreads = 256;          // pendulum and cart-pole
 
 // jnp.clip / torch.clamp: NaN passes through.
 __device__ __forceinline__ float clip(float x, float lo, float hi) {
@@ -55,47 +74,81 @@ __device__ __forceinline__ float angle_norm(float x) {
 constexpr int kJ = 6;                  // cheetah joints
 constexpr int kCheetahObs = 2 * kJ + 2;
 
-__global__ void pendulum_step_kernel(
-    int B, const float* __restrict__ th, const float* __restrict__ thdot,
-    const int32_t* __restrict__ t, const float* __restrict__ act,
-    const float* __restrict__ rth, const float* __restrict__ rtd,
-    const int32_t* __restrict__ rt, const float* __restrict__ robs,
-    float* __restrict__ oth, float* __restrict__ otd,
-    int32_t* __restrict__ ot, float* __restrict__ oobs,
-    float* __restrict__ orew, uint8_t* __restrict__ odone,
-    int max_episode_steps, float max_torque, float reward_scale,
-    float grav_coef, float torque_coef) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  float th_i = th[i];
-  float td = thdot[i];
-  float u = clip(act[i], -max_torque, max_torque);
+// The packed argument blocks, in the order of the wrappers' struct formats
+// (ops.py): the inputs, the outputs (the next state's leaves, obs, reward,
+// done), the stream, B and the horizon, the float scalars.
+struct PendulumArgs {
+  const float* th; const float* thdot; const int32_t* t; const float* act;
+  const float* rth; const float* rtd; const int32_t* rt; const float* robs;
+  float* oth; float* otd; int32_t* ot; float* oobs; float* orew;
+  uint8_t* odone;
+  void* stream;
+  int B, max_episode_steps;
+  float max_torque, reward_scale, grav_coef, torque_coef;
+};
+
+struct CartpoleArgs {
+  const float* x; const float* xdot; const float* th; const float* thdot;
+  const int32_t* t; const float* act;
+  const float* rx; const float* rxd; const float* rth; const float* rtd;
+  const int32_t* rt; const float* robs;
+  float* ox; float* oxd; float* oth; float* otd; int32_t* ot; float* oobs;
+  float* orew; uint8_t* odone;
+  void* stream;
+  int B, max_episode_steps;
+  float force_max, reward_scale, total_m, pm_l, four_thirds, x_limit,
+      th_limit;
+};
+
+struct CheetahArgs {
+  const float* th; const float* om; const float* vx; const float* pitch;
+  const int32_t* t; const float* act;
+  const float* rth; const float* rom; const float* rvx; const float* rpi;
+  const int32_t* rt; const float* robs;
+  float* oth; float* oom; float* ovx; float* opi; int32_t* ot; float* oobs;
+  float* orew; uint8_t* odone;
+  void* stream;
+  int B, max_episode_steps;
+  float ctrl_cost, reward_scale;
+};
+
+// pendulum: one thread per env; a lane reads its env's row of reset obs
+// and writes its row of obs, three floats at a stride of three.
+__global__ void __launch_bounds__(kThreads) pendulum_step_kernel(
+    const PendulumArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  float th_i = a.th[i], td = a.thdot[i], u = a.act[i];
+  const int32_t t_i = a.t[i];
+  const float r_th = a.rth[i], r_td = a.rtd[i];
+  const int32_t r_t = a.rt[i];
+  float r_ob[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) r_ob[c] = a.robs[3 * (size_t)i + c];
+  const int32_t nt = t_i + 1;
+  const bool done = nt >= a.max_episode_steps;
+  u = clip(u, -a.max_torque, a.max_torque);
   float an = angle_norm(th_i);
   float cost = an * an + 0.1f * (td * td) + 0.001f * (u * u);
-  td = td + (grav_coef * sinf(th_i) + torque_coef * u) * 0.05f;
+  td = td + (a.grav_coef * sinf(th_i) + a.torque_coef * u) * 0.05f;
   td = clip(td, -8.0f, 8.0f);
   float nth = th_i + td * 0.05f;
-  int32_t nt = t[i] + 1;
-  bool done = nt >= max_episode_steps;
-  float rew = -cost;
-  if (reward_scale != 1.0f) rew = rew * reward_scale;
-  orew[i] = rew;
-  odone[i] = done ? 1 : 0;
-  if (done) {
-    oth[i] = rth[i];
-    otd[i] = rtd[i];
-    ot[i] = rt[i];
-    oobs[3 * i + 0] = robs[3 * i + 0];
-    oobs[3 * i + 1] = robs[3 * i + 1];
-    oobs[3 * i + 2] = robs[3 * i + 2];
-  } else {
-    oth[i] = nth;
-    otd[i] = td;
-    ot[i] = nt;
-    oobs[3 * i + 0] = cosf(nth);
-    oobs[3 * i + 1] = sinf(nth);
-    oobs[3 * i + 2] = td / 8.0f;
-  }
+  // -cost times the scale, also where the scale is 1 (exact there), as
+  // one multiply by -scale that the compiler cannot turn into a sign flip:
+  // a NaN cost then gives the canonical NaN that the plain version's
+  // negation gives, where -cost alone flipped the NaN's sign bit
+  const float rew = __fmul_rn(cost, -a.reward_scale);
+  float ob[3];
+  sincosf(nth, &ob[1], &ob[0]);
+  ob[2] = td / 8.0f;
+  a.oth[i] = done ? r_th : nth;
+  a.otd[i] = done ? r_td : td;
+  a.ot[i] = done ? r_t : nt;
+  a.orew[i] = rew;
+  a.odone[i] = done ? 1 : 0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    a.oobs[3 * (size_t)i + c] = done ? r_ob[c] : ob[c];
 }
 
 // cheetah: six lanes per env, one per joint, five envs on lanes 0..29 of a
@@ -227,120 +280,101 @@ __global__ void __launch_bounds__(kCheetahThreads) cheetah_step_kernel(
   }
 }
 
-__global__ void cartpole_step_kernel(
-    int B, const float* __restrict__ x, const float* __restrict__ xdot,
-    const float* __restrict__ th, const float* __restrict__ thdot,
-    const int32_t* __restrict__ t, const float* __restrict__ act,
-    const float* __restrict__ rx, const float* __restrict__ rxd,
-    const float* __restrict__ rth, const float* __restrict__ rtd,
-    const int32_t* __restrict__ rt, const float* __restrict__ robs,
-    float* __restrict__ ox, float* __restrict__ oxd,
-    float* __restrict__ oth, float* __restrict__ otd,
-    int32_t* __restrict__ ot, float* __restrict__ oobs,
-    float* __restrict__ orew, uint8_t* __restrict__ odone,
-    int max_episode_steps, float force_max, float reward_scale,
-    float total_m, float pm_l, float four_thirds, float x_limit,
-    float th_limit) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  float a0 = act[i];
-  float x_i = x[i], xd = xdot[i], th_i = th[i], td = thdot[i];
-  float force = clip(a0, -1.0f, 1.0f) * force_max;
-  float costh = cosf(th_i);
-  float sinth = sinf(th_i);
+// cart-pole: one thread per env; a row of obs and of reset obs is one
+// float4 where both arrays are 16-byte aligned (kVec), else four floats.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) cartpole_step_kernel(
+    const CartpoleArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const float a0 = a.act[i];
+  const float x_i = a.x[i], xd = a.xdot[i], th_i = a.th[i], td = a.thdot[i];
+  const int32_t t_i = a.t[i];
+  const float r_x = a.rx[i], r_xd = a.rxd[i], r_th = a.rth[i],
+              r_td = a.rtd[i];
+  const int32_t r_t = a.rt[i];
+  float4 r_ob;
+  if (kVec) {
+    r_ob = reinterpret_cast<const float4*>(a.robs)[i];
+  } else {
+    const float* ro = a.robs + 4 * (size_t)i;
+    r_ob = make_float4(ro[0], ro[1], ro[2], ro[3]);
+  }
+  const float nx = x_i + 0.02f * xd;
+  const float nth = th_i + 0.02f * td;
+  const int32_t nt = t_i + 1;
+  const bool fell = (fabsf(nx) > a.x_limit) | (fabsf(nth) > a.th_limit);
+  const bool done = fell | (nt >= a.max_episode_steps);
+  const float total_m = a.total_m, pm_l = a.pm_l;
+  const float force = clip(a0, -1.0f, 1.0f) * a.force_max;
+  float sinth, costh;
+  sincosf(th_i, &sinth, &costh);
   float temp = (force + pm_l * (td * td) * sinth) / total_m;
   float th_acc = (9.8f * sinth - costh * temp) /
-                 (0.5f * (four_thirds - 0.1f * (costh * costh) / total_m));
+                 (0.5f * (a.four_thirds - 0.1f * (costh * costh) / total_m));
   float x_acc = temp - pm_l * th_acc * costh / total_m;
-  float nx = x_i + 0.02f * xd;
-  float nxd = xd + 0.02f * x_acc;
-  float nth = th_i + 0.02f * td;
-  float ntd = td + 0.02f * th_acc;
-  int32_t nt = t[i] + 1;
-  bool fell = (fabsf(nx) > x_limit) | (fabsf(nth) > th_limit);
-  bool done = fell | (nt >= max_episode_steps);
+  const float nxd = xd + 0.02f * x_acc;
+  const float ntd = td + 0.02f * th_acc;
   // the control cost takes the unclipped action, as the reference's does
   float rew = 1.0f - 0.01f * (a0 * a0) - (fell ? 1.0f : 0.0f);
-  if (reward_scale != 1.0f) rew = rew * reward_scale;
-  orew[i] = rew;
-  odone[i] = done ? 1 : 0;
-  float* obs = oobs + 4 * i;
-  if (done) {
-    ox[i] = rx[i];
-    oxd[i] = rxd[i];
-    oth[i] = rth[i];
-    otd[i] = rtd[i];
-    ot[i] = rt[i];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) obs[k] = robs[4 * i + k];
+  if (a.reward_scale != 1.0f) rew = rew * a.reward_scale;
+  a.ox[i] = done ? r_x : nx;
+  a.oxd[i] = done ? r_xd : nxd;
+  a.oth[i] = done ? r_th : nth;
+  a.otd[i] = done ? r_td : ntd;
+  a.ot[i] = done ? r_t : nt;
+  a.orew[i] = rew;
+  a.odone[i] = done ? 1 : 0;
+  const float4 ob = done ? r_ob : make_float4(nx, nxd, nth, ntd);
+  if (kVec) {
+    reinterpret_cast<float4*>(a.oobs)[i] = ob;
   } else {
-    ox[i] = nx;
-    oxd[i] = nxd;
-    oth[i] = nth;
-    otd[i] = ntd;
-    ot[i] = nt;
-    obs[0] = nx;
-    obs[1] = nxd;
-    obs[2] = nth;
-    obs[3] = ntd;
+    float* o = a.oobs + 4 * (size_t)i;
+    o[0] = ob.x;
+    o[1] = ob.y;
+    o[2] = ob.z;
+    o[3] = ob.w;
   }
 }
 
-constexpr int kThreads = 256;
+template <typename Args>
+Args unpack(const void* packed) {
+  Args a;
+  memcpy(&a, packed, sizeof a);
+  return a;
+}
 
 }  // namespace
 
-extern "C" int pendulum_step(
-    int B, const void* th, const void* thdot, const void* t, const void* act,
-    const void* rth, const void* rtd, const void* rt, const void* robs,
-    void* oth, void* otd, void* ot, void* oobs, void* orew, void* odone,
-    int max_episode_steps, float max_torque, float reward_scale,
-    float grav_coef, float torque_coef, void* stream) {
-  int blocks = (B + kThreads - 1) / kThreads;
-  pendulum_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      B, (const float*)th, (const float*)thdot, (const int32_t*)t,
-      (const float*)act, (const float*)rth, (const float*)rtd,
-      (const int32_t*)rt, (const float*)robs, (float*)oth, (float*)otd,
-      (int32_t*)ot, (float*)oobs, (float*)orew, (uint8_t*)odone,
-      max_episode_steps, max_torque, reward_scale, grav_coef, torque_coef);
+extern "C" int pendulum_args_size() { return (int)sizeof(PendulumArgs); }
+extern "C" int cartpole_args_size() { return (int)sizeof(CartpoleArgs); }
+extern "C" int cheetah_args_size() { return (int)sizeof(CheetahArgs); }
+
+extern "C" int pendulum_step(const void* packed) {
+  const PendulumArgs a = unpack<PendulumArgs>(packed);
+  pendulum_step_kernel<<<(a.B + kThreads - 1) / kThreads, kThreads, 0,
+                         (cudaStream_t)a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-extern "C" int cartpole_step(
-    int B, const void* x, const void* xdot, const void* th,
-    const void* thdot, const void* t, const void* act, const void* rx,
-    const void* rxd, const void* rth, const void* rtd, const void* rt,
-    const void* robs, void* ox, void* oxd, void* oth, void* otd, void* ot,
-    void* oobs, void* orew, void* odone, int max_episode_steps,
-    float force_max, float reward_scale, float total_m, float pm_l,
-    float four_thirds, float x_limit, float th_limit, void* stream) {
-  int blocks = (B + kThreads - 1) / kThreads;
-  cartpole_step_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      B, (const float*)x, (const float*)xdot, (const float*)th,
-      (const float*)thdot, (const int32_t*)t, (const float*)act,
-      (const float*)rx, (const float*)rxd, (const float*)rth,
-      (const float*)rtd, (const int32_t*)rt, (const float*)robs, (float*)ox,
-      (float*)oxd, (float*)oth, (float*)otd, (int32_t*)ot, (float*)oobs,
-      (float*)orew, (uint8_t*)odone, max_episode_steps, force_max,
-      reward_scale, total_m, pm_l, four_thirds, x_limit, th_limit);
+extern "C" int cartpole_step(const void* packed) {
+  const CartpoleArgs a = unpack<CartpoleArgs>(packed);
+  const int blocks = (a.B + kThreads - 1) / kThreads;
+  const cudaStream_t stream = (cudaStream_t)a.stream;
+  if ((((uintptr_t)a.robs | (uintptr_t)a.oobs) & 15u) == 0)
+    cartpole_step_kernel<true><<<blocks, kThreads, 0, stream>>>(a);
+  else
+    cartpole_step_kernel<false><<<blocks, kThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-extern "C" int cheetah_step(
-    int B, const void* th, const void* om, const void* vx, const void* pitch,
-    const void* t, const void* act, const void* rth, const void* rom,
-    const void* rvx, const void* rpi, const void* rt, const void* robs,
-    void* oth, void* oom, void* ovx, void* opi, void* ot, void* oobs,
-    void* orew, void* odone, int max_episode_steps, float ctrl_cost,
-    float reward_scale, void* stream) {
-  int blocks = (B + kCheetahEnvs - 1) / kCheetahEnvs;
-  cheetah_step_kernel<<<blocks, kCheetahThreads, 0, (cudaStream_t)stream>>>(
-      B, (const float*)th, (const float*)om, (const float*)vx,
-      (const float*)pitch, (const int32_t*)t, (const float*)act,
-      (const float*)rth, (const float*)rom, (const float*)rvx,
-      (const float*)rpi, (const int32_t*)rt, (const float*)robs, (float*)oth,
-      (float*)oom, (float*)ovx, (float*)opi, (int32_t*)ot, (float*)oobs,
-      (float*)orew, (uint8_t*)odone, max_episode_steps, ctrl_cost,
-      reward_scale);
+extern "C" int cheetah_step(const void* packed) {
+  const CheetahArgs a = unpack<CheetahArgs>(packed);
+  int blocks = (a.B + kCheetahEnvs - 1) / kCheetahEnvs;
+  cheetah_step_kernel<<<blocks, kCheetahThreads, 0,
+                        (cudaStream_t)a.stream>>>(
+      a.B, a.th, a.om, a.vx, a.pitch, a.t, a.act, a.rth, a.rom, a.rvx,
+      a.rpi, a.rt, a.robs, a.oth, a.oom, a.ovx, a.opi, a.ot, a.oobs,
+      a.orew, a.odone, a.max_episode_steps, a.ctrl_cost, a.reward_scale);
   return (int)cudaGetLastError();
 }

@@ -230,3 +230,147 @@ def test_cartpole_env_matches_the_reference_env():
     assert torch.equal(obs, torch.stack(state[:4], dim=-1))
     assert state[4].dtype == torch.int32 and not state[4].any()
 
+
+
+@pytest.mark.parametrize("name", ["pendulum", "cartpole"])
+@pytest.mark.parametrize("B", [1, 31, 33, 65, 4097])
+@pytest.mark.parametrize("ends", ["all", "none"])
+def test_plain_pendulum_and_cartpole_steps_match_jax_ref_when_all_or_no_episode_ends(
+        name, B, ends):
+    """Every row at its last step, or none (cart-pole's carts and poles
+    then inside the fall limits, so none falls): the batch sizes around
+    the CUDA kernels' warps of 32 envs."""
+    state, a, rs, ro = make_inputs(name, B, seed=B + 3)
+    t = np.full(B, HORIZON - 1 if ends == "all" else HORIZON - 2, np.int32)
+    state = state[:-1] + (t,)
+    if name == "cartpole" and ends == "none":
+        # |x| <= 2.3 and |th| <= 0.16, then a step of at most 0.04 each
+        state = (state[0] * np.float32(2.3 / 2.5), state[1],
+                 state[2] * np.float32(0.16 / 0.25), state[3], t)
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS[name])
+    step = jax.jit(lambda s, a, rs, ro: jax_env_ops.env_step(
+        name, s, a, rs, ro, impl="ref", **params))
+    want = flat(step(jax.tree.map(jnp.asarray, state), jnp.asarray(a),
+                     jax.tree.map(jnp.asarray, rs), jnp.asarray(ro)))
+    got = flat(env_ops.env_step(name, to_torch(state), to_torch(a),
+                                to_torch(rs), to_torch(ro), **params))
+    assert_step_close(got, want)
+    done = got[-1]
+    assert done.all() if ends == "all" else not done.any()
+    if ends == "all":
+        for leaf, cand in zip(got[:len(state)], rs):
+            np.testing.assert_array_equal(leaf, cand)
+        np.testing.assert_array_equal(got[len(state)], ro)
+
+
+WRAPPER_LEAVES = {
+    "pendulum": ["th", "thdot", "t", "actions", "reset th", "reset thdot",
+                 "reset t", "reset obs"],
+    "cartpole": ["x", "xdot", "th", "thdot", "t", "actions", "reset x",
+                 "reset xdot", "reset th", "reset thdot", "reset t",
+                 "reset obs"],
+    "cheetah": ["th", "om", "vx", "pitch", "t", "actions", "reset th",
+                "reset om", "reset vx", "reset pitch", "reset t",
+                "reset obs"],
+}
+
+
+def _spoil(x, fault):
+    """``x`` with one fault: another shape (one more trailing column),
+    another dtype, a strided view of the same shape, or on another
+    device."""
+    if fault == "shape":
+        return (torch.zeros(x.shape + (1,), dtype=x.dtype) if x.dim() == 1
+                else torch.zeros(x.shape[0], x.shape[1] + 1, dtype=x.dtype))
+    if fault == "dtype":
+        return x.to(torch.float64 if x.dtype == torch.float32
+                    else torch.int64)
+    if fault == "non-contiguous":
+        return torch.zeros(x.shape + (2,), dtype=x.dtype)[..., 0]
+    return torch.zeros(x.shape, dtype=x.dtype, device="meta")
+
+
+@pytest.mark.parametrize("fault", ["shape", "dtype", "non-contiguous",
+                                   "device"])
+@pytest.mark.parametrize("name,leaf", [
+    (name, k) for name in WRAPPER_LEAVES
+    for k in range(len(WRAPPER_LEAVES[name]))])
+def test_kernel_wrappers_refuse_each_bad_leaf_before_any_build(
+        monkeypatch, name, leaf, fault):
+    """Each wrapper refuses a leaf of the wrong shape or dtype, a strided
+    one or one on another device, names it, and neither builds nor
+    launches anything."""
+    def no_build():
+        raise AssertionError("the wrapper reached the library")
+
+    monkeypatch.setattr(env_ops, "_lib", no_build)
+    state, a, rs, ro = (to_torch(x) for x in make_inputs(name, 4, seed=5))
+    flat_in = [*state, a, *rs, ro]
+    flat_in[leaf] = _spoil(flat_in[leaf], fault)
+    n = len(state)
+    args = (tuple(flat_in[:n]), flat_in[n], tuple(flat_in[n + 1:2 * n + 1]),
+            flat_in[-1])
+    label = WRAPPER_LEAVES[name][leaf]
+    # B and the device are those of one leaf (cheetah's vx, else the
+    # first); moved to another device, that leaf makes every other one
+    # disagree, and the first of those is refused
+    fixes = 2 if name == "cheetah" else 0
+    if fault == "device" and leaf == fixes:
+        label = WRAPPER_LEAVES[name][1 if fixes == 0 else 0]
+    with pytest.raises(ValueError,
+                       match=f"env_step kernel: {label} must be a "
+                             f"contiguous") as info:
+        env_ops.STEP_BATCH_CUDA[name](*args, max_episode_steps=HORIZON,
+                                      reward_scale=1.0, **PARAMS[name])
+    if fault == "non-contiguous":
+        assert str(info.value).endswith("(non-contiguous)")
+
+
+@pytest.mark.parametrize("B", [0, 1, 16, 4097])
+@pytest.mark.parametrize("name", ["pendulum", "cartpole", "cheetah"])
+def test_output_allocation_gives_fresh_disjoint_outputs(name, B):
+    """``_outputs`` of each env's leaves: the next state's leaves shaped
+    and typed like the state's, obs like the reset obs, rewards float32
+    and dones bool, all contiguous, on the inputs' device, no two sharing
+    a byte, none sharing one with an input."""
+    state, _, _, ro = (to_torch(x) for x in make_inputs(name, B, seed=2))
+    outs = env_ops._outputs(state, ro)
+    assert len(outs) == len(state) + 3
+    want = [*state, ro, torch.zeros(B), torch.zeros(B, dtype=torch.bool)]
+    for x, w in zip(outs, want):
+        assert (x.shape, x.dtype, x.device) == (w.shape, w.dtype, w.device)
+        assert x.is_contiguous()
+
+    def spans(xs):
+        return [(x.data_ptr(), x.data_ptr() + x.numel() * x.element_size())
+                for x in xs if x.numel()]
+
+    spans_out = sorted(spans(outs))
+    assert all(end <= start
+               for (_, end), (start, _) in zip(spans_out, spans_out[1:]))
+    assert not any(s < e_in and s_in < e for s, e in spans_out
+                   for s_in, e_in in spans([*state, ro]))
+
+
+@pytest.mark.parametrize("name", ["pendulum", "cartpole", "cheetah"])
+def test_kernel_wrappers_at_zero_envs_return_empty_outputs(monkeypatch, name):
+    """B = 0: the wrapper checks its leaves and returns empty outputs of
+    the plain version's shapes and dtypes, without building or
+    launching."""
+    def no_build():
+        raise AssertionError("the wrapper reached the library")
+
+    monkeypatch.setattr(env_ops, "_lib", no_build)
+    wrapper = env_ops.STEP_BATCH_CUDA[name]
+    before = wrapper.launches
+    args = tuple(to_torch(x) for x in make_inputs(name, 3, seed=1))
+    empty = tuple(tuple(leaf[:0] for leaf in x) if isinstance(x, tuple)
+                  else x[:0] for x in args)
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS[name])
+    got = flat(wrapper(*empty, **params))
+    want = flat(env_ref.STEP_BATCH_REF[name](*empty, **params))
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    assert wrapper.launches == before

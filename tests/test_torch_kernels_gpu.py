@@ -218,6 +218,140 @@ def test_cheetah_step_kernel_at_tile_edges(cuda, B, ends):
     assert n_done == {"none": 0, "all": B}.get(ends, n_done)
 
 
+# pendulum's and cart-pole's warps and 256-thread blocks
+ENV_EDGE_B = [1, 31, 32, 33, 255, 256, 257, 4097, 16384]
+
+
+def _bits(x):
+    """A float32 tensor's bits as int32, so NaNs compare by their bits."""
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _assert_same_bits(got, want):
+    for g, w in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w))
+
+
+def _ends(name, state, ends):
+    """``state`` with no, every or (``mixed``) a third of the rows at their
+    last step; cart-pole's "none" keeps its carts and poles inside the fall
+    limits."""
+    if ends == "mixed":
+        return state
+    t = torch.full_like(state[-1], HORIZON - 1 if ends == "all"
+                        else HORIZON - 2)
+    state = state[:-1] + (t,)
+    if name == "cartpole" and ends == "none":
+        state = (state[0] * (2.3 / 2.5), state[1], state[2] * (0.16 / 0.25),
+                 state[3], t)
+    return state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ends", ["none", "all", "mixed"])
+@pytest.mark.parametrize("B", ENV_EDGE_B)
+@pytest.mark.parametrize("name", ["pendulum", "cartpole"])
+def test_pendulum_and_cartpole_steps_at_block_edges(cuda, name, B, ends):
+    """Every leaf bit for bit against the plain version, one launch a
+    call, with no, every or a third of the episodes ending."""
+    state, a, rs, ro = env_inputs(name, B, cuda)
+    state = _ends(name, state, ends)
+    params = dict(max_episode_steps=HORIZON, reward_scale=0.5,
+                  **PARAMS[name])
+    wrapper = env_ops.STEP_BATCH_CUDA[name]
+    before = wrapper.launches
+    got = wrapper(state, a, rs, ro, **params)
+    want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro, **params)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_same_bits(got, want)
+    n_done = int(got[3].sum())
+    assert n_done == {"none": 0, "all": B}.get(ends, n_done)
+    assert ends != "mixed" or n_done >= B // 3
+
+
+def _sweep(cuda):
+    """Float32 bit patterns: every 4,099th of the 2^32, and by hand +-0,
+    subnormals, the trig's slow path past |x| = 105,615, the largest
+    floats, +-inf and NaNs."""
+    x = torch.arange(-(1 << 31), 1 << 31, 4099, device=cuda,
+                     dtype=torch.int64).to(torch.int32).view(torch.float32)
+    special = torch.tensor(
+        [0.0, -0.0, 1e-45, -1e-45, 1.1754942e-38, -1.1754942e-38,
+         1.1754944e-38, 105614.99, 105615.0, 105615.01, -105615.0, 1e10,
+         -1e10, 3.4028235e38, -3.4028235e38, float("inf"), float("-inf"),
+         float("nan")], device=cuda)
+    return torch.cat([x, special])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pendulum", "cartpole"])
+def test_env_step_kernels_over_a_trig_sweep(cuda, name):
+    """The sweep as pendulum's next angle (thdot set to cancel the step's
+    own increment, so the obs hold sincosf's cos and sin of each angle) and
+    as cart-pole's angle: every leaf bit for bit against the plain
+    version, whose ``torch.cos``/``torch.sin`` are CUDA's cosf and sinf."""
+    x = _sweep(cuda)
+    n = x.shape[0]
+    z = torch.zeros(n, device=cuda)
+    t = torch.zeros(n, dtype=torch.int32, device=cuda)
+    if name == "pendulum":
+        u = torch.full((n, 1), -0.0, device=cuda)
+        y = (15.0 * torch.sin(x) + 3.0 * u[:, 0]) * 0.05
+        state, a = (x, torch.where(y == 0, y, -y), t), u
+        rs, ro = (z, z, t), torch.zeros(n, 3, device=cuda)
+    else:
+        state, a = (z, z, x, z, t), torch.zeros(n, 1, device=cuda)
+        rs, ro = (z, z, z, z, t), torch.zeros(n, 4, device=cuda)
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS[name])
+    got = env_ops.STEP_BATCH_CUDA[name](state, a, rs, ro, **params)
+    want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro, **params)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want)
+    if name == "pendulum":
+        fin = torch.isfinite(x)
+        assert torch.equal(_bits(want[0][0])[fin], _bits(x)[fin])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pendulum", "cartpole"])
+def test_env_step_kernels_pass_nan_like_plain(cuda, name):
+    """NaN in the actions and in every float leaf of the state and of the
+    reset candidates, on rows that end and rows that do not: the kernel's
+    outputs equal the plain version's bit for bit."""
+    state, a, rs, ro = env_inputs(name, 1000, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for leaf in (*state[:-1], a, *rs[:-1], ro):
+        leaf.view(-1)[torch.randperm(leaf.numel(), generator=gen,
+                                     device=cuda)[:60]] = float("nan")
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS[name])
+    got = env_ops.STEP_BATCH_CUDA[name](state, a, rs, ro, **params)
+    want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro, **params)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want)
+    assert bool(torch.isnan(got[2]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 33, 4097])
+def test_cartpole_step_with_unaligned_reset_obs(cuda, B):
+    """A contiguous reset obs that starts 4 bytes past a 16-byte boundary
+    (the kernel then moves its rows a float at a time): bit for bit."""
+    state, a, rs, ro = env_inputs("cartpole", B, cuda)
+    ro = torch.cat([torch.zeros(1, device=cuda), ro.view(-1)])[1:].view(B, 4)
+    assert ro.is_contiguous() and ro.data_ptr() % 16 == 4
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS["cartpole"])
+    got = env_ops.cartpole_step_cuda(state, a, rs, ro, **params)
+    want = env_ref.cartpole_step_batch_ref(state, a, rs, ro, **params)
+    torch.cuda.synchronize()
+    _assert_same_bits(got, want)
+    assert int(got[3].sum()) >= B // 3
+
+
 def _capture(fn):
     """``fn`` run once on a side stream (build, load), then captured in a
     CUDA graph; returns the graph and the captured call's outputs."""

@@ -26,9 +26,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
    warps and block sizes, alike, then with NaN in a few rows of every
    float input and a reset obs that is not 16-byte aligned, then over all
    2^32 float32 bit patterns as the angle: every leaf bit for bit, NaNs
-   by their bits); the replay ring (N > cap, wraparound, cap 1,
-   float, bool, int, bfloat16 and zero-width rows, odd heads where source
-   and destination differ mod 16 and mod 4) and the sum tree (capacities 1, 2, 1024 and
+   by their bits; the sum-tree find at capacities 1, 2, 32, 1,024 and 2^20
+   × B 1, 8, 9, 31, 32, 33, 256, 257, 4,096, 4,097 (past it, a thread a
+   mass) and 20,000, with masses that tie with a stored prefix sum at
+   every chunk of levels, 0, the root and above it, a negative mass and
+   NaN, over zero-mass leaves, a run of them and a zero-mass right
+   subtree; the discounted returns at T 1, 63, 64, 65, 128, 129 × B 1,
+   31, 32, 33, 160, 163, 4,096 with GAE's five patterns of dones,
+   unaligned rewards and dones, T 0 and B 0); the replay ring (N > cap,
+   wraparound, cap 1, float, bool, int, bfloat16 and zero-width rows, odd
+   heads where source and destination differ mod 16 and mod 4) and the sum tree (capacities 1, 2, 1024 and
    2^20, zero-mass leaves, updates with duplicate indices) exactly; the LM
    kernels at the serve runs' shapes and ragged ones: the selective scan
    (hymba's prefill B 4 × S 144 × Di 3,200 × N 16, the long request's
@@ -116,8 +123,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
    iterations, collect k+1 runs while learn k does, with the params learn
    k starts from): fused PPO cheetah at 160 envs × 125 steps, 10
    iterations (2 serial, 8 pipelined: a collect graph and a learn graph
-   replayed on two streams), twice, with the plain versions
-   (``kernels="ref"``), on the sync runtime with one sampler and as a
+   replayed on two streams; the learn captured after its one eager
+   iteration, so the serial learn whose seconds the clock notes is a
+   replay, and ``overlap_saved_s`` is below the collect's seconds on every
+   pipelined iteration whose learn finished first), twice, with the
+   plain versions (``kernels="ref"``), on the sync runtime with one sampler and as a
    serial loop written out with the stale params, all bit for bit, and 2
    overlapped iterations against the serial fused run; staleness 0, 0, 0,
    then 1, ``overlap_saved_s`` 0 on the serial iterations and the last;
@@ -153,13 +163,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
    line ``{"kernels": [...]}``. A replay-ring time covers one call of the
    op over the 5 stored leaves (one launch). The discounted returns lie on
    no path (neither package calls them outside tests and benchmarks); they
-   are timed at the GAE shapes, and GAE also at T 125 × B 163, a batch
-   that is not a multiple of 4 (the kernel's scalar loads); the tree
-   update at the priority update's B 256 and at an add's B 20,000. The LM
+   are timed at the GAE shapes, and both also at T 125 × B 163, a batch
+   that is not a multiple of 4 (the kernels' scalar loads); the tree
+   update at the priority update's B 256 and at an add's B 20,000, the
+   find at B 256 and, past its warp a mass, at B 20,000. The LM
    kernels are timed in bfloat16 at run (a)'s shapes and at the long
    request's (the scan, float32, also at falcon-mamba-7b's, with a log
    line giving a second floor beside its
-   bound: one MUFU.EX2 per (b, t, d, n) at 16 per SM per clock); their
+   bound: one MUFU.EX2 per (b, t, d, n) at 16 per SM per clock; and the
+   find, not with ``--timing-only``, with a ``sumtree_find_floor`` line:
+   the launch floor plus its dependent global trips per mass times one L2
+   round trip, measured by a pointer chase that this script builds); their
    operations count the products of the (row, key) pairs the masks let
    through at the bf16 tensor-core rate (989 TFLOP/s), the scan's at the
    float32 rate, and their library yardstick is one
@@ -385,6 +399,15 @@ CHEETAH_EDGE_B = (1, 16, 31, 33, 4096, 4097)
 CHEETAH_ENDS = ("none", "all", "mixed")
 ENV_EDGE_B = (1, 16, 31, 32, 33, 64, 160, 255, 256, 257, 4096, 4097,
               16384)
+# the redesigned find's edges: no level to read (cap 1) up to 2^20 leaves,
+# batches around a block (8 masses of a warp each, 256 of a thread each)
+# and around the switch from a warp a mass to a thread a mass past 4,096;
+# the returns' 64-step chunks and 32-column blocks
+# (tests/test_torch_kernels_gpu.py holds the same)
+FIND_EDGE_CAP = (1, 2, 32, 1024, 1 << 20)
+FIND_EDGE_B = (1, 8, 9, 31, 32, 33, 256, 257, 4096, 4097, 20000)
+RETURNS_EDGE_T = (1, 63, 64, 65, 128, 129)
+RETURNS_EDGE_B = (1, 31, 32, 33, 160, 163, 4096)
 # the env sweep of phase 6: pendulum and cart-pole at a sampler's 16 envs,
 # the fused learning run's 64, the fused carry's 160 and the vector 4,096
 ENV_TIMING_B = (16, 64, 160, 4096)
@@ -407,6 +430,32 @@ def gae_edge_inputs(T, B, dones, seed):
     elif dones == "10%":
         d = torch.from_numpy(rng.random((T, B)) < 0.1).to("cuda")
     return r, v, d, lv
+
+
+def find_edge_inputs(cap, B, seed):
+    """A tree of integer masses on the card (every sum exact in float32, so
+    a mass equal to a prefix sum ties with the stored nodes), with zero-mass
+    leaves, a run of them and a zero-mass right subtree; and B masses: 0,
+    the root, above the root, a negative one, NaN, the stored prefix sums
+    at the leaves around every power of two (so at every chunk of levels
+    some descent turns) and at random leaves, then stratified ones."""
+    from repro_torch.kernels.sum_tree import sumtree_build
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, 8, cap).astype(np.float32)
+    x[rng.random(cap) < 0.3] = 0.0
+    x[cap // 8: cap // 8 + cap // 16] = 0.0
+    x[3 * cap // 4:] = 0.0
+    prefix = np.concatenate([[0.0], np.cumsum(x, dtype=np.float64)])
+    total = prefix[-1]
+    turns = sorted({i for j in range(cap.bit_length())
+                    for i in (2 ** j - 1, 2 ** j, 2 ** j + 1) if i <= cap})
+    special = np.array([0.0, total, total + 1.0, -1.0, np.nan]
+                       + [prefix[i] for i in turns]
+                       + list(prefix[rng.integers(0, cap + 1, 8)]))
+    strat = (np.arange(B) + rng.random(B)) / max(B, 1) * total
+    m = np.concatenate([np.roll(special, B), strat])[:B].astype(np.float32)
+    return (sumtree_build(torch.from_numpy(x).to("cuda")),
+            torch.from_numpy(m).to("cuda"))
 
 
 def env_edge_inputs(name, B, ends, horizon, seed):
@@ -489,11 +538,65 @@ def check_trig_sweep():
 
 
 def check_rl_edges():
-    """Phase 3 for the redesigned gae and cheetah kernels at their tile
-    edges: every leaf bit for bit, one launch per call."""
+    """Phase 3 for the redesigned RL kernels at their edges: every leaf bit
+    for bit, one launch per call."""
     from repro_torch.kernels.env_step import ops as env_ops
     from repro_torch.kernels.env_step import ref as env_ref
     from repro_torch.kernels.gae import ops as gae_ops
+    from repro_torch.kernels.sum_tree import ops as tree_ops
+    n = 0
+    for cap in FIND_EDGE_CAP:
+        for B in FIND_EDGE_B:
+            tree, masses = find_edge_inputs(cap, B, seed=cap + B)
+            before = tree_ops.sumtree_find_cuda.launches
+            got = tree_ops.sumtree_find_cuda(tree, masses)
+            want = tree_ops.sumtree_find_batch_ref(tree, masses)
+            torch.cuda.synchronize()
+            assert tree_ops.sumtree_find_cuda.launches == before + 1
+            assert got.dtype == torch.int32 and torch.equal(got, want), (
+                f"sumtree_find cap={cap} B={B}: "
+                f"{int((got != want).sum())} leaves differ")
+            n += 1
+    log(f"check sumtree_find at its edges: cap in {FIND_EDGE_CAP} x B in "
+        f"{FIND_EDGE_B}, masses at ties, 0, the root and above, negative, "
+        f"NaN: {n} calls, bit for bit")
+    n = 0
+    for T in RETURNS_EDGE_T:
+        for B in RETURNS_EDGE_B:
+            for dones in GAE_DONES:
+                r, _, d, lv = gae_edge_inputs(T, B, dones, seed=T * B + 1)
+                before = gae_ops.discounted_returns_cuda.launches
+                got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+                want = gae_ops.discounted_returns_ref(r, d, lv, 0.99)
+                torch.cuda.synchronize()
+                assert gae_ops.discounted_returns_cuda.launches == before + 1
+                assert torch.equal(got, want), (
+                    f"discounted_returns T={T} B={B} dones {dones}: "
+                    f"{int((got != want).sum())} elements differ")
+                n += 1
+    # inputs one element past an aligned start take the scalar loads
+    for T, B in ((64, 32), (125, 160), (129, 4096)):
+        r, _, d, lv = gae_edge_inputs(T, B, "10%", seed=T + B)
+        ru = torch.cat([torch.zeros(1, device="cuda"), r.reshape(-1)])[1:]
+        du = torch.cat([torch.zeros(1, dtype=torch.bool, device="cuda"),
+                        d.reshape(-1)])[1:]
+        for rr, dd in ((ru.view(T, B), d), (r, du.view(T, B))):
+            got = gae_ops.discounted_returns_cuda(rr, dd, lv, gamma=0.99)
+            want = gae_ops.discounted_returns_ref(rr, dd, lv, 0.99)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (
+                f"discounted_returns T={T} B={B} unaligned")
+            n += 1
+    for T, B in ((0, 160), (5, 0)):
+        r, _, d, lv = gae_edge_inputs(T, B, "none", seed=1)
+        before = gae_ops.discounted_returns_cuda.launches
+        got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+        assert got.shape == (T, B)
+        assert gae_ops.discounted_returns_cuda.launches == before
+        n += 1
+    log(f"check discounted_returns at the tile edges: T in "
+        f"{RETURNS_EDGE_T} x B in {RETURNS_EDGE_B} x dones {GAE_DONES}, "
+        f"unaligned rewards and dones, T 0 and B 0: {n} calls, bit for bit")
     n = 0
     for T in GAE_EDGE_T:
         for B in GAE_EDGE_B:
@@ -1280,8 +1383,8 @@ def time_kernels():
                     lambda: wrapper(state, a, rs, ro, **params),
                     lambda: env_ref.STEP_BATCH_REF[name](state, a, rs, ro,
                                                          **params), 200, 50)
-    # GAE at a batch that is not a multiple of 4, where the kernel loads
-    # one float at a time
+    # GAE and the returns at a batch that is not a multiple of 4, where the
+    # kernels load one float at a time
     T, gB = h, n * per + 3
     r, v, d, lv = gae_inputs(T, gB, seed=3)
     adv, ret = gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95)
@@ -1289,6 +1392,11 @@ def time_kernels():
         "gae", f"T={T} B={gB}", T * gB, nbytes(r, v, d, lv, adv, ret),
         lambda: gae_ops.gae_cuda(r, v, d, lv, gamma=0.99, lam=0.95),
         lambda: gae_ops.gae_ref(r, v, d, lv, 0.99, 0.95), 200, 5)
+    ret = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+    timings["ragged", "discounted_returns"] = measure(
+        "discounted_returns", f"T={T} B={gB}", T * gB, nbytes(r, d, lv, ret),
+        lambda: gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99),
+        lambda: gae_ops.discounted_returns_ref(r, d, lv, 0.99), 200, 5)
     # the replay path at the SAC cheetah run's shapes: 20,000 transitions
     # of 144 B inserted into 2^20 slots, 256 drawn from 60,000 filled ones
     n_rows, B = n * per * h, 256
@@ -1327,6 +1435,17 @@ def time_kernels():
         4 * sum(nodes) + nbytes(masses, found),
         lambda: tree_ops.sumtree_find_cuda(tree, masses),
         lambda: tree_ops.sumtree_find_batch_ref(tree, masses), 200, 50)
+    # and at an add's batch, past the warp a mass: a thread a mass
+    many = stratified_masses(
+        tree, n_rows, torch.Generator(device="cuda").manual_seed(7))
+    found_many = tree_ops.sumtree_find_cuda(tree, many)
+    timings["add", "sumtree_find"] = measure(
+        "sumtree_find", f"B={n_rows} cap={CAP}",
+        n_rows * (CAP.bit_length() - 1),
+        4 * sum(tree_path_nodes(found_many, CAP))
+        + nbytes(many, found_many),
+        lambda: tree_ops.sumtree_find_cuda(tree, many),
+        lambda: tree_ops.sumtree_find_batch_ref(tree, many), 50, 10)
     for label, upd_idx in (
             ("main", found),
             ("add", ((torch.arange(n_rows, device="cuda") + start) % CAP)
@@ -1405,12 +1524,84 @@ def log_host_parts(n=2000, rounds=7):
 def launch_floor():
     """The per-launch floor: one library kernel that does next to nothing
     (``zero_()`` of 16 floats), its device time from graph replay as
-    ``measure`` takes it, and its call time. Logged on a line of its own."""
+    ``measure`` takes it, and its call time. Logged on a line of its own;
+    returns the device ms."""
     z = torch.empty(16, device="cuda")
     floor = {"kernel": "Tensor.zero_ of 16 float32",
              "kernels_per_call": kernels_per_call(z.zero_),
              "ms": time_ms(z.zero_, 200), "device_ms": graph_ms(z.zero_, 200)}
     log(json.dumps({"launch_floor": floor}))
+    return floor["device_ms"]
+
+
+# A probe of one L2 round trip, built by this script (it is no kernel of
+# the port): one thread chases a random cycle through the 128-byte lines of
+# an 8 MB buffer (the size of the find's 2^20-leaf tree) with the find's
+# kind of load (``const __restrict__``, through L1), so every hop is a
+# dependent load that misses L1 and hits L2.
+L2_PROBE_CU = r"""
+#include <cuda_runtime.h>
+__global__ void chase(const unsigned* __restrict__ next, int hops,
+                      unsigned* out) {
+  unsigned i = 0;
+  for (int h = 0; h < hops; ++h) i = next[i];
+  *out = i;
+}
+extern "C" int l2_chase(const void* next, int hops, void* out,
+                        void* stream) {
+  chase<<<1, 1, 0, (cudaStream_t)stream>>>((const unsigned*)next, hops,
+                                           (unsigned*)out);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def l2_round_trip_us(hops=(2048, 10240)):
+    """One L2 round trip in µs: the probe's time at two chain lengths,
+    from CUDA events around one launch each (median of 7), the difference
+    over the extra hops."""
+    from repro_torch.kernels import build
+    out = build.BUILD_ROOT / "l2_probe" / "libl2_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    src = out.with_suffix(".cu")
+    src.write_text(L2_PROBE_CU)
+    subprocess.run([build.nvcc_path(), *build.FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(out))
+    lib.l2_chase.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                             ctypes.c_void_p]
+    lines = (8 << 20) // 128
+    order = np.random.default_rng(0).permutation(lines) * 32
+    nxt = np.zeros(lines * 32, dtype=np.uint32)
+    nxt[order] = np.roll(order, -1)
+    nxt = torch.from_numpy(nxt.view(np.int32)).to("cuda")
+    nxt.sum()                           # the buffer into L2
+    res = torch.empty(1, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    times = []
+    for n in hops:
+        def chase():
+            assert lib.l2_chase(nxt.data_ptr(), n, res.data_ptr(),
+                                stream) == 0
+        times.append(time_ms(chase, 1, rounds=7))
+    return (times[1] - times[0]) / (hops[1] - hops[0]) * 1e3
+
+
+def log_find_floor(floor_ms, find, batch):
+    """The find's second floor beside its byte bound, at the main path's
+    ``batch`` masses in a 2^20-leaf tree: the launch floor plus its
+    dependent global trips per mass times one measured L2 round trip
+    (``l2_round_trip_us``), logged on a line of its own."""
+    from repro_torch.kernels.sum_tree import ops as tree_ops
+    trip_us = l2_round_trip_us()
+    trips = tree_ops.find_trips(CAP, batch)
+    log(json.dumps({"sumtree_find_floor": {
+        "shape": find["shape"], "levels": CAP.bit_length() - 1,
+        "dependent_global_trips": trips, "l2_round_trip_us": trip_us,
+        "launch_floor_us": floor_ms * 1e3,
+        "trip_floor_us": floor_ms * 1e3 + trips * trip_us,
+        "bound_us": find["bound_ms"] * 1e3,
+        "device_us": find["device_ms"] * 1e3}}))
 
 
 def log_timings(timings, labels):
@@ -1952,6 +2143,24 @@ def overlap_runs(cli, counted, runs, check_logs, zero_counts, device,
         res = counted(label, lambda: run(spec))
         check_logs(label, res.logs, iters, B * h)
         out = schedule_of(label, res.logs, iters)
+        # the clock's serial reference is a replayed learn, so where learn k
+        # finished before collect k+1, the learn's seconds hidden under that
+        # collect are the reference's, below the collect's own
+        ref = res.runner._overlap_clock.learn_ref
+        first = res.runner.learn_done_first
+        hidden = [(k, res.logs[k].overlap_saved_s,
+                   res.logs[k + 1].collect_time)
+                  for k in range(iters - 1) if first[k]]
+        for k, saved, collect_s in hidden:
+            assert saved == min(ref, collect_s) and saved < collect_s, (
+                label, k, saved, collect_s, ref)
+        out["learn_ref_s"] = ref
+        out["learn_finished_first"] = [k for k, _, _ in hidden]
+        log(f"  {label}: learn reference {ref:.5f} s (a replay); on the "
+            f"{len(hidden)} pipelined iterations whose learn finished "
+            f"first, overlap_saved_s "
+            f"{[round(x, 5) for _, x, _ in hidden]} < their collect "
+            f"{[round(x, 5) for _, _, x in hidden]}")
         halves = dict(zip(("collect", "learn"), res.runner.halves))
         want, per_replay = {}, {}
         for half, engine in halves.items():
@@ -1970,6 +2179,8 @@ def overlap_runs(cli, counted, runs, check_logs, zero_counts, device,
                          "replays": engine.replays}
         assert per_replay == ({} if spec.kernels == "ref"
                               else per_iteration), (label, per_replay)
+        # iteration 0's learn is the one eager learn: the noted one replays
+        assert halves["learn"].eager_iterations == 1, label
         assert runs[label] == zero_counts(**want), (label, runs[label])
         assert (halves["collect"].graph.pool()
                 != halves["learn"].graph.pool()), label
@@ -2539,8 +2750,9 @@ def main(argv=None) -> int:
     del run_a
 
     phase_done("reference")
-    launch_floor()
+    floor_ms = launch_floor()
     timings = time_kernels()
+    log_find_floor(floor_ms, timings["main", "sumtree_find"], 256)
     log_host_parts()
     entries = []
     for name in kernels.KERNELS:

@@ -47,12 +47,14 @@ metrics)``; ``FusedRunner`` wraps the engine in the runner interface
 ``FusedRunner(overlap=True)`` runs the reference's pipelined schedule over
 two engines, one for each half of the iteration: the collect (the env
 carry's generator registered with its graph) and the learn (the plane's),
-each graph with a memory pool of its own. After two serial iterations,
-learn k is replayed on a learner stream while collect k+1 is replayed on a
-collect stream with the params learn k starts from; the trajectory is
-copied into the learn's own buffer, and the params into the collect's
-static copy, on the collect stream between iterations. ``chunk`` is
-ignored under overlap.
+each graph with a memory pool of its own. Both graphs are captured
+before the second of the two serial iterations, so the serial learn that
+gives the clock its reference is a replay, as every pipelined learn is.
+After the serial iterations, learn k is replayed on a learner stream while
+collect k+1 is replayed on a collect stream with the params learn k starts
+from; the trajectory is copied into the learn's own buffer, and the params
+into the collect's static copy, on the collect stream between iterations.
+``chunk`` is ignored under overlap.
 """
 from __future__ import annotations
 
@@ -128,10 +130,11 @@ def make_iteration(rollout: Callable, train_step: Callable) -> Callable:
 class FusedEngine:
     """Runs ``one_iteration`` over a state it keeps static: the state the
     first iteration returns, whose tensors every later iteration
-    overwrites in place. On CUDA the first ``WARMUP`` iterations run
-    eagerly on a side stream, then one iteration is captured in a CUDA
-    graph (in a memory pool of its own, ``pool``) and each later one is a
-    replay. On the CPU every iteration runs eagerly.
+    overwrites in place. On CUDA the first ``warmup`` iterations
+    (``WARMUP`` unless the caller gives fewer) run eagerly on a side
+    stream, then one iteration is captured in a CUDA graph (in a memory
+    pool of its own, ``pool``) and each later one is a replay. On the CPU
+    every iteration runs eagerly.
 
     ``run(state, n)`` runs ``n`` iterations and returns ``(state,
     metrics)``, each metric a float32 ``(n,)`` CPU tensor, read with one
@@ -145,8 +148,9 @@ class FusedEngine:
     # capture cannot, the second runs on the state made static
     WARMUP = 2
 
-    def __init__(self, one_iteration: Callable):
+    def __init__(self, one_iteration: Callable, warmup: int = WARMUP):
         self.one_iteration = one_iteration
+        self.warmup = warmup            # eager iterations before a capture
         self.state = None
         self._tensors: List[torch.Tensor] = []     # the static state's
         self.keys: Optional[List[str]] = None
@@ -222,8 +226,8 @@ class FusedEngine:
         keeps one workspace per (handle, stream), and a capture bakes in
         the workspace of its stream, so two graphs captured on one stream
         would run their matmuls in one workspace at once."""
-        if self.eager_iterations < self.WARMUP:
-            raise RuntimeError(f"capture after {self.WARMUP} eager "
+        if self.eager_iterations < self.warmup:
+            raise RuntimeError(f"capture after {self.warmup} eager "
                                f"iterations (ran {self.eager_iterations})")
         before = kernels.launch_counts()
         # the capture empties the allocator's cache first; so does this,
@@ -278,14 +282,14 @@ class FusedEngine:
             side = torch.cuda.Stream(device)
             side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
-                while self.eager_iterations < self.WARMUP and len(rows) < n:
+                while self.eager_iterations < self.warmup and len(rows) < n:
                     rows.append(self.eager(state))
             torch.cuda.current_stream(device).wait_stream(side)
             synchronize(device)
             self.graph_stats["warmup_s"] = (
                 self.graph_stats.get("warmup_s", 0.0)
                 + time.perf_counter() - t0)
-            if self.eager_iterations < self.WARMUP:
+            if self.eager_iterations < self.warmup:
                 return self.state, self._metrics(rows)
             self.capture(device)
         while len(rows) < n:
@@ -340,10 +344,14 @@ class FusedRunner(BackendCloseMixin):
     ``overlap=True`` trades the one graph for a pipeline of two, as the
     reference trades its one dispatch for two: a collect engine
     (``rollout``) and a learn engine (the train step, with ``mean_return``
-    computed from the trajectory it consumes), each eager for the two
-    serial warm-up iterations, then captured in a graph with a memory pool
-    of its own and the generators of its half (the env carry's, the
-    plane's) registered. Per pipelined iteration, learn k is replayed on a
+    computed from the trajectory it consumes), each captured in a graph
+    with a memory pool of its own and the generators of its half (the env
+    carry's, the plane's) registered. The collect's two eager iterations
+    (the first collect and serial iteration 0's) and the learn's one
+    (serial iteration 0's) come first; both are captured before serial
+    iteration 1, so its learn, which gives the clock its serial reference,
+    is a replay like every pipelined learn. The schedule and the bits are
+    those of eager halves. Per pipelined iteration, learn k is replayed on a
     learner stream and collect k+1 on a collect stream, acting with the
     params learn k starts from (``staleness`` 1.0 on the iteration that
     consumes it). Between iterations, on the collect stream, the new
@@ -387,6 +395,9 @@ class FusedRunner(BackendCloseMixin):
                 train_step or learner_step(learn), self._traj)
             self._overlap_clock = OverlapClock()
             self._overlap_done = 0
+            # per logged iteration: whether its learn had finished when the
+            # concurrent collect did (None without a concurrent collect)
+            self.learn_done_first: List[Optional[bool]] = []
             self._streams = None        # (collect, learn) on the card
 
     @property
@@ -492,9 +503,9 @@ class FusedRunner(BackendCloseMixin):
 
     def _capture_halves(self) -> None:
         """Capture each half that has no graph yet, on the stream that
-        replays it (so each bakes in its own cuBLAS workspace); the two
-        register disjoint sets of generators (each generator with one
-        graph)."""
+        replays it (so each bakes in its own cuBLAS workspace, which its
+        eager iterations on that stream made); the two register disjoint
+        sets of generators (each generator with one graph)."""
         gens = [set(map(id, state_generators(e.state))) for e in self.halves]
         if gens[0] & gens[1]:
             raise ValueError("the collect and the learn share a generator: "
@@ -539,7 +550,11 @@ class FusedRunner(BackendCloseMixin):
                 warm, self._overlap_done = (self._overlap_done,
                                             self._overlap_done + 1)
                 more = it + 1 < iterations
-                saved = 0.0
+                saved, ready = 0.0, None
+                if warm == 1 and self._streams:
+                    # the learn after its one eager iteration, the collect
+                    # after its two: the learn noted below is a replay
+                    self._capture_halves()
                 if warm < OVERLAP_WARMUP:
                     t0 = time.perf_counter()
                     self._handoff()
@@ -553,8 +568,6 @@ class FusedRunner(BackendCloseMixin):
                         self._copy_params()
                         collect_dur, stale = self._collect(), 0.0
                 else:
-                    if self._streams:
-                        self._capture_halves()
                     t0 = time.perf_counter()
                     self._handoff()
                     if more:        # p_k, before learn k writes it
@@ -562,7 +575,8 @@ class FusedRunner(BackendCloseMixin):
                     row, done = self._learn()
                     if more:
                         next_dur = self._collect()
-                        saved = clock.saved(next_dur, tree_ready(done))
+                        ready = tree_ready(done)
+                        saved = clock.saved(next_dur, ready)
                         collect_dur, stale = next_dur, 1.0
                     if done is not None:
                         done.synchronize()
@@ -570,6 +584,7 @@ class FusedRunner(BackendCloseMixin):
                 rows.append(row)
                 timing.append((data_dur, max(0.0, window - saved),
                                data_stale, saved))
+                self.learn_done_first.append(ready)
         if caller is not None:
             for stream in self._streams:
                 caller.wait_stream(stream)
@@ -599,7 +614,10 @@ def _overlap_engines(rollout: Callable, train_step: Callable, traj_box):
     buffer's state is the trajectory it was given, so the two would share
     storage. The learn reports the train step's metrics and the
     ``mean_return`` of the trajectory it consumed (the reference's
-    ``learn_body``)."""
+    ``learn_body``). The learn is captured after one eager iteration: it
+    runs on the learner stream that captures it, so that iteration has
+    built its kernels, its stream's cuBLAS workspace and the state it
+    leaves static, and serial iteration 1's learn can be a replay."""
 
     def collect_half(state):
         params, env_carry, _ = state
@@ -615,4 +633,4 @@ def _overlap_engines(rollout: Callable, train_step: Callable, traj_box):
         metrics["mean_return"] = trajectory.episode_returns(traj)
         return (params, opt_state, plane_state), metrics
 
-    return FusedEngine(collect_half), FusedEngine(learn_half)
+    return FusedEngine(collect_half), FusedEngine(learn_half, warmup=1)

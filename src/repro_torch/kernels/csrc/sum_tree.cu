@@ -7,13 +7,22 @@
 // root is the last element. cap is a power of two, log2cap levels above the
 // leaves.
 //
-// sumtree_find: one thread per mass walks from the root to a leaf, at each
-// level reading the left child and going right when mass >= left (then
-// subtracting left), the plain version's comparison and subtraction, so it
-// is exact. At 2^20 leaves the tree is 8 MB and does not fit in shared
-// memory; the walk reads it from global memory, where the upper levels stay
-// in L2. Bound on an H100: HBM bytes of the nodes the batch's paths touch,
-// but its time is latency: log2cap dependent loads per thread.
+// sumtree_find: a warp per mass descends 5 levels a trip (find_trip): the
+// 31 left children below the warp's node are one load a lane, all issued
+// at once; then each lane walks one of the 32 candidate paths of the 5
+// choices in registers, with the plain version's comparison and
+// subtraction on the stored nodes (go right when mass >= left, then
+// subtract left), and the one path whose choices are all its own is the
+// descent's. So it is exact, and at 2^20 leaves a mass makes 4 dependent
+// trips to global memory where a thread a mass made 20. A batch above
+// kFindWarpBatch takes the plain walk, a thread a mass. The tree is 8 MB
+// and is read from L2. Bound on an H100: HBM bytes of the nodes the
+// batch's paths touch, but its time is latency: the launch and the trips
+// (an L2 round trip each, plus a trip's shuffles and walk). Staging the
+// top 8 to 12 levels in shared memory (one coalesced load a block, then
+// the walk through them) measured slower than reading them through L1 and
+// L2; so did each lane loading its own path's 5 nodes, and 6 to 8 levels a
+// trip (2 to 8 paths a lane).
 //
 // sumtree_update: last write wins at the leaves, then every touched parent
 // recomputed as left + right from the children after the write. One host
@@ -58,6 +67,11 @@
 namespace {
 
 constexpr int kFindThreads = 256;
+constexpr int kFindLevels = 5;          // a warp's levels a trip
+// Up to this batch a warp takes a mass. Above, the warps have no lanes and
+// issue slots to spare and the plain walk wins (an H100 at 2^20 leaves:
+// 4.17 against 4.59 us at 4,096 masses, 6.64 against 4.67 at 8,192).
+constexpr int kFindWarpBatch = 4096;
 constexpr int kWalkThreads = 256;      // walk_kernel: up to this batch
 constexpr int kUpdateThreads = 256;
 constexpr int kGroupLevels = 11;        // levels per group (the top less)
@@ -77,22 +91,78 @@ __device__ __forceinline__ int leaf_index(int32_t i, unsigned ucap) {
   return n < ucap ? (int)n : -1;
 }
 
-__global__ void find_kernel(const float* __restrict__ flat,
-                            const float* __restrict__ masses,
-                            int32_t* __restrict__ out, long long cap,
-                            int log2cap, int batch) {
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= batch) return;
-  float m = masses[j];
-  long long idx = 0;
-  for (int k = log2cap - 1; k >= 0; --k) {
-    idx *= 2;
-    float left = flat[level_offset(cap, k) + idx];
-    bool right = m >= left;
-    m = right ? m - left : m;
-    idx = right ? idx + 1 : idx;
+__device__ __forceinline__ unsigned level_offset32(unsigned cap, int k) {
+  return (cap - (cap >> k)) * 2u;
+}
+
+// One trip of a warp's descent, from node idx at level `level` down k =
+// min(kFindLevels, level) levels. A path through the k levels is k
+// choices, the first the highest bit of t in [0, 2^k); lane t takes path
+// t mod 2^k. The left children on all the paths are 2^k - 1 nodes, one a
+// lane: the r-th of the s-th level below idx's is lane 2^s - 1 + r's (one
+// load a lane, all issued at once: one round trip). Each lane takes its
+// path's k nodes from their lanes (shuffles) and walks the path with the
+// plain version's compare and subtract, noting whether every choice it
+// makes is the path's own. Exactly one path is, the descent's (a path that
+// follows the descent's first choices reads the descent's nodes with its
+// mass, so it makes its next choice); the warp takes that lane's mass.
+__device__ __forceinline__ void find_trip(float& m, unsigned& idx,
+                                          int& level, int lane,
+                                          const float* __restrict__ flat,
+                                          unsigned cap) {
+  constexpr int K = kFindLevels;
+  const int k = min(K, level);
+  const unsigned paths = (1u << k) - 1;
+  const int s_mine = 31 - __clz(lane + 1);
+  float mine = 0.0f;
+  if (lane < (int)paths)
+    mine = flat[level_offset32(cap, level - 1 - s_mine) +
+                2 * ((idx << s_mine) + (unsigned)(lane + 1 - (1 << s_mine)))];
+  const unsigned t = lane & paths;
+  float left[K];
+#pragma unroll
+  for (int s = 0; s < K; ++s)
+    left[s] = __shfl_sync(0xffffffffu, mine,
+                          (1 << s) - 1 + (s < k ? (int)(t >> (k - s)) : 0));
+  float x = m;
+  bool own = true;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    if (s < k) {
+      const bool right = x >= left[s];
+      x = right ? x - left[s] : x;
+      own = own && right == (((t >> (k - 1 - s)) & 1u) != 0);
+    }
   }
-  out[j] = (int32_t)idx;
+  const int src = __ffs(__ballot_sync(0xffffffffu, own)) - 1;
+  m = __shfl_sync(0xffffffffu, x, src);
+  idx = (idx << k) + ((unsigned)src & paths);
+  level -= k;
+}
+
+// kWarp: a warp a mass (find_trip); else the plain walk, a thread a mass
+// and a level a trip.
+template <bool kWarp>
+__global__ void __launch_bounds__(kFindThreads) find_kernel(
+    const float* __restrict__ flat, const float* __restrict__ masses,
+    int32_t* __restrict__ out, unsigned cap, int log2cap, int batch) {
+  const int t = blockIdx.x * kFindThreads + threadIdx.x;
+  const int j = kWarp ? t / 32 : t;
+  if (j >= batch) return;                 // with kWarp, the whole warp
+  float m = masses[j];
+  unsigned idx = 0;
+  for (int level = log2cap; level > 0;) {
+    if constexpr (kWarp) {
+      find_trip(m, idx, level, t % 32, flat, cap);
+    } else {
+      const float left = flat[level_offset32(cap, level - 1) + 2 * idx];
+      const bool right = m >= left;
+      m = right ? m - left : m;
+      idx = 2 * idx + (right ? 1u : 0u);
+      --level;
+    }
+  }
+  if (!kWarp || t % 32 == 0) out[j] = (int32_t)idx;
 }
 
 // One block, a thread per index (batch <= kWalkThreads).
@@ -251,15 +321,27 @@ __global__ void __launch_bounds__(kUpdateThreads) update_kernel(
 
 }  // namespace
 
-// flat (2 cap - 1,) f32, masses (batch,) f32 -> out (batch,) int32.
+// flat (2 cap - 1,) f32, masses (batch,) f32 -> out (batch,) int32;
+// cap <= 2^31. One launch.
 extern "C" int sumtree_find(const void* flat, const void* masses, void* out,
                             long long cap, int log2cap, int batch,
                             void* stream) {
-  int blocks = (batch + kFindThreads - 1) / kFindThreads;
-  find_kernel<<<blocks, kFindThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)flat, (const float*)masses, (int32_t*)out, cap, log2cap,
-      batch);
+  const bool warp = batch <= kFindWarpBatch;
+  const long long threads = warp ? 32LL * batch : batch;
+  auto kernel = warp ? find_kernel<true> : find_kernel<false>;
+  kernel<<<(unsigned)((threads + kFindThreads - 1) / kFindThreads),
+           kFindThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)flat, (const float*)masses, (int32_t*)out, (unsigned)cap,
+      log2cap, batch);
   return (int)cudaGetLastError();
+}
+
+// The dependent global round trips of a mass's descent through a tree of
+// log2cap levels, in a batch of `batch` masses (the mass's load goes with
+// the first).
+extern "C" int sumtree_find_trips(int log2cap, int batch) {
+  return batch <= kFindWarpBatch ? (log2cap + kFindLevels - 1) / kFindLevels
+                                 : log2cap;
 }
 
 // int32 flags of the groups' root levels: cap >> (root level) each.

@@ -11,9 +11,10 @@ the kernels of ``csrc/sum_tree.cu`` (unless the mode is ``ref``).
 The kernels replace ``sumtree_find_pallas`` and ``sumtree_update_pallas``
 (``repro/kernels/sum_tree/sum_tree_pallas.py``). Both are exact. The bound
 is HBM bytes of the nodes touched; the descent's time is the latency of
-``log2(cap)`` dependent loads. An update is one host call (one launch up to
-256 indices, two above); its scratch, ``SumTree.winner`` on a CUDA tree,
-has the size the library gives (``update_scratch_size``).
+its dependent trips to global memory, one per 5 levels at the replay's
+batch (``find_trips``). A find is one launch. An update is one host call
+(one launch up to 256 indices, two above); its scratch, ``SumTree.winner``
+on a CUDA tree, has the size the library gives (``update_scratch_size``).
 ``sumtree_find_cuda.launches`` and ``sumtree_update_cuda.launches`` count
 calls.
 """
@@ -50,7 +51,16 @@ def _lib() -> ctypes.CDLL:
     lib.sumtree_update.restype = _I
     lib.sumtree_update_scratch.argtypes = [_L]
     lib.sumtree_update_scratch.restype = _L
+    lib.sumtree_find_trips.argtypes = [_I, _I]
+    lib.sumtree_find_trips.restype = _I
     return lib
+
+
+def find_trips(capacity: int, batch: int) -> int:
+    """The dependent global round trips the descent kernel makes per mass
+    for ``batch`` masses in a tree of ``capacity`` leaves, as
+    ``csrc/sum_tree.cu`` counts them."""
+    return _lib().sumtree_find_trips(capacity.bit_length() - 1, batch)
 
 
 @functools.cache
@@ -77,10 +87,17 @@ def _raise_on(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: cudaError {rc}")
 
 
+def _check_capacity(kernel: str, cap: int) -> None:
+    if cap > 1 << 31:
+        raise ValueError(f"{kernel} kernel: int32 indices address at most "
+                         f"2^31 leaves; got capacity {cap}")
+
+
 def sumtree_find_cuda(tree: SumTree, masses: torch.Tensor) -> torch.Tensor:
     """Launch the descent kernel: masses (B,) float32 -> leaf indices (B,)
     int32."""
     cap, dev = tree.capacity, tree.flat.device
+    _check_capacity("sumtree_find", cap)
     B = masses.shape[0] if masses.dim() == 1 else -1
     _check("sumtree_find", [
         ("flat", tree.flat, (2 * cap - 1,), torch.float32),
@@ -105,9 +122,7 @@ def sumtree_update_cuda(tree: SumTree, idx: torch.Tensor,
     ``[-cap, 0)`` counts from the end, one outside ``[-cap, cap)`` is
     dropped, as in the plain version), values (B,) float32."""
     cap, dev = tree.capacity, tree.flat.device
-    if cap > 1 << 31:
-        raise ValueError(f"sumtree_update kernel: int32 indices address at "
-                         f"most 2^31 leaves; got capacity {cap}")
+    _check_capacity("sumtree_update", cap)
     B = idx.shape[0] if idx.dim() == 1 else -1
     _check("sumtree_update", [
         ("flat", tree.flat, (2 * cap - 1,), torch.float32),

@@ -9,7 +9,8 @@ installed:
 
 Bounds: ``t``, ``done``, GAE and the discounted returns exact
 (``-fmad=false`` and only ``+ - *``: the kernel rounds the plain version's
-expressions the same way); env float
+expressions the same way), also at the tile edges of their 64-step chunks
+and 32-column blocks; env float
 leaves within 4 ulp per element, or 4 ulp of the leaf's magnitude where
 cancellation leaves a value near zero (``sinf``/``cosf`` may differ from
 ATen's by an ulp); the cheetah step at its tile edges bit for bit, as it
@@ -193,6 +194,61 @@ def test_gae_kernel_at_tile_edges(cuda, T, B, dones):
     assert gae_ops.gae_cuda.launches == before + 1
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# the redesigned returns kernel's edges: its 64-step chunks and 32-column
+# blocks (chip_smoke.py checks the same)
+RETURNS_EDGE_T = [1, 63, 64, 65, 128, 129]
+RETURNS_EDGE_B = [1, 31, 32, 33, 160, 163, 4096]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dones", ["none", "all", "t=0", "t=T-1", "10%"])
+@pytest.mark.parametrize("B", RETURNS_EDGE_B)
+@pytest.mark.parametrize("T", RETURNS_EDGE_T)
+def test_discounted_returns_kernel_at_tile_edges(cuda, T, B, dones):
+    """Bit for bit against the plain version, one launch a call."""
+    r, _, d, lv = _gae_inputs(T, B, dones, cuda, seed=T * B + 1)
+    before = gae_ops.discounted_returns_cuda.launches
+    got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+    want = gae_ops.discounted_returns_ref(r, d, lv, 0.99)
+    torch.cuda.synchronize()
+    assert gae_ops.discounted_returns_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unaligned", ["rewards", "dones"])
+@pytest.mark.parametrize("T,B", [(64, 32), (125, 160), (129, 4096)])
+def test_discounted_returns_kernel_takes_unaligned_inputs(cuda, T, B,
+                                                          unaligned):
+    """An input one element past an aligned start takes the scalar loads,
+    bit for bit as the vector ones."""
+    r, _, d, lv = _gae_inputs(T, B, "10%", cuda, seed=T + B)
+    if unaligned == "rewards":
+        r = torch.cat([torch.zeros(1, device=cuda), r.reshape(-1)])[1:]
+        r = r.view(T, B)
+        assert r.data_ptr() % 16
+    else:
+        d = torch.cat([torch.zeros(1, dtype=torch.bool, device=cuda),
+                       d.reshape(-1)])[1:].view(T, B)
+        assert d.data_ptr() % 4
+    before = gae_ops.discounted_returns_cuda.launches
+    got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+    want = gae_ops.discounted_returns_ref(r, d, lv, 0.99)
+    torch.cuda.synchronize()
+    assert gae_ops.discounted_returns_cuda.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,B", [(0, 160), (5, 0), (0, 0)])
+def test_discounted_returns_kernel_with_nothing_to_scan(cuda, T, B):
+    r, _, d, lv = _gae_inputs(T, B, "none", cuda, seed=1)
+    before = gae_ops.discounted_returns_cuda.launches
+    got = gae_ops.discounted_returns_cuda(r, d, lv, gamma=0.99)
+    assert got.shape == (T, B)
+    assert gae_ops.discounted_returns_cuda.launches == before
 
 
 @pytest.mark.gpu
@@ -562,6 +618,63 @@ def test_sumtree_find_kernel_matches_plain(cuda, cap):
     torch.cuda.synchronize()
     assert tree_ops.sumtree_find_cuda.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+# the redesigned find's edges: trees with no level to read (cap 1) up to
+# 2^20 leaves, batches around a block (8 masses of a warp each, 256 of a
+# thread each) and around the switch from a warp a mass to a thread a mass
+# past 4,096, and masses at the descent's ties and extremes (chip_smoke.py
+# checks the same)
+FIND_EDGE_CAP = [1, 2, 32, 1024, 1 << 20]
+FIND_EDGE_B = [1, 8, 9, 31, 32, 33, 256, 257, 4096, 4097, 20000]
+
+
+def _find_edge_inputs(cap, B, device, seed):
+    """A tree of integer masses (every sum exact in float32, so a mass
+    equal to a prefix sum ties with the stored nodes), with zero-mass
+    leaves, a run of them and a zero-mass right subtree; and B masses: 0,
+    the root, above the root, a negative one, NaN, the stored prefix sums
+    at the leaves around every power of two (so at every chunk of levels
+    some descent turns) and at random leaves, then stratified ones."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, 8, cap).astype(np.float32)
+    x[rng.random(cap) < 0.3] = 0.0
+    x[cap // 8: cap // 8 + cap // 16] = 0.0
+    x[3 * cap // 4:] = 0.0
+    prefix = np.concatenate([[0.0], np.cumsum(x, dtype=np.float64)])
+    total = prefix[-1]
+    turns = sorted({i for j in range(cap.bit_length())
+                    for i in (2 ** j - 1, 2 ** j, 2 ** j + 1) if i <= cap})
+    special = np.array([0.0, total, total + 1.0, -1.0, np.nan]
+                       + [prefix[i] for i in turns]
+                       + list(prefix[rng.integers(0, cap + 1, 8)]))
+    strat = (np.arange(B) + rng.random(B)) / max(B, 1) * total
+    m = np.concatenate([np.roll(special, B), strat])[:B].astype(np.float32)
+    tree = tree_ref.sumtree_build(torch.from_numpy(x).to(device))
+    return tree, torch.from_numpy(m).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", FIND_EDGE_B)
+@pytest.mark.parametrize("cap", FIND_EDGE_CAP)
+def test_sumtree_find_kernel_at_its_edges(cuda, cap, B):
+    """Bit for bit against the plain version, one launch a call."""
+    tree, masses = _find_edge_inputs(cap, B, cuda, seed=cap + B)
+    before = tree_ops.sumtree_find_cuda.launches
+    got = tree_ops.sumtree_find_cuda(tree, masses)
+    want = tree_ops.sumtree_find_batch_ref(tree, masses)
+    torch.cuda.synchronize()
+    assert tree_ops.sumtree_find_cuda.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_sumtree_find_kernel_with_no_mass_launches_nothing(cuda):
+    tree, _ = _tree(1024, 3, cuda)
+    before = tree_ops.sumtree_find_cuda.launches
+    got = tree_ops.sumtree_find_cuda(tree, torch.ones(0, device=cuda))
+    assert got.shape == (0,) and got.dtype == torch.int32
+    assert tree_ops.sumtree_find_cuda.launches == before
 
 
 @pytest.mark.gpu

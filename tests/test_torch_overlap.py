@@ -212,6 +212,41 @@ def test_overlap_log_accounting(runtime):
     assert [lg.staleness for lg in logs] == STALENESS
 
 
+def test_fused_overlap_notes_the_kind_of_learn_it_pipelines():
+    """The serial learn whose seconds the clock notes (``note_serial``) is
+    the same kind of learn, eager or a replay, as every pipelined
+    iteration's. The order of the fused runner's learn calls and notes is
+    recorded; no time is read. On the CPU nothing is captured, so every
+    learn, the noted one too, is eager (on the card every learn after
+    iteration 0 is a replay: ``test_torch_overlap_gpu.py``)."""
+    runner = build(_spec("ppo pendulum", "fused"), device="cpu")
+    learn, clock = runner.halves[1], runner._overlap_clock
+    events = []
+
+    def record(kind, fn):
+        def call(*args, **kwargs):
+            events.append(kind)
+            return fn(*args, **kwargs)
+        return call
+
+    learn.eager = record("eager", learn.eager)
+    learn.replay = record("replay", learn.replay)
+    clock.note_serial = record("note", clock.note_serial)
+    runner.run(ITERS)
+    runner.close()
+    learns = [e for e in events if e != "note"]
+    noted = [events[i - 1] for i, e in enumerate(events) if e == "note"]
+    assert len(learns) == ITERS and noted
+    # one note, right after serial iteration 1's learn
+    assert events.index("note") == 2 and len(noted) == 1
+    pipelined = set(learns[2:])
+    assert set(noted) == pipelined == {"eager"}
+    assert learn.graph is None and learn.replays == 0
+    # the learn runs before the collect on the CPU: it always ends first
+    assert runner.learn_done_first == [None, None] + [True] * (ITERS - 3) + [
+        None]
+
+
 @pytest.mark.parametrize("runtime", ["sync", "fused"])
 def test_overlap_schedule_matches_jax(runtime):
     """The same spec through both packages: the same ``staleness`` list,

@@ -156,6 +156,43 @@ def test_overlap_graphs_pools_generators_and_launches(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("label", list(SPECS))
+def test_fused_overlap_notes_a_replayed_learn(cuda, label):
+    """The serial learn the clock notes is a replay of the learn graph, as
+    every pipelined learn is: the learn is captured after its one eager
+    iteration (iteration 0), so when ``note_serial`` is called the learn
+    has replayed once, and the learn's kernels have counted the eager
+    iteration and that replay. The schedule is the reference's."""
+    runner = build(_spec(label, "fused"))
+    learn, collect = runner.halves[1], runner.halves[0]
+    clock = runner._overlap_clock
+    seen = []
+    note = clock.note_serial
+
+    def record(seconds):
+        seen.append((learn.eager_iterations, learn.replays,
+                     kernels.launch_counts()))
+        note(seconds)
+
+    clock.note_serial = record
+    kernels.reset_launch_counts()
+    logs = runner.run(ITERS)
+    runner.close()
+    assert len(seen) == 1
+    eager, replays, counts = seen[0]
+    assert (eager, replays) == (1, 1)
+    assert learn.eager_iterations == 1 and learn.replays == ITERS - 1
+    per = learn.graph_stats["launches_per_replay"]
+    mine = set(per) - set(collect.graph_stats["launches_per_replay"])
+    assert mine
+    for k in mine:
+        assert counts[k] == (eager + replays) * per[k], (k, counts, per)
+    assert [lg.staleness for lg in logs] == [0, 0, 0, 1, 1, 1]
+    assert [lg.overlap_saved_s == 0.0 for lg in logs] == [
+        True, True, False, False, False, True]
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("runtime", ["sync", "fused"])
 def test_collect_params_never_share_storage_with_the_learners(cuda,
                                                               runtime):

@@ -26,7 +26,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
    warps and block sizes, alike, then with NaN in a few rows of every
    float input and a reset obs that is not 16-byte aligned, then over all
    2^32 float32 bit patterns as the angle: every leaf bit for bit, NaNs
-   by their bits; the sum-tree find at capacities 1, 2, 32, 1,024 and 2^20
+   by their bits; the three env steps again storing float16 and bfloat16
+   obs and rewards (the reset obs in that dtype): cheetah at its B sweep,
+   pendulum and cart-pole at theirs, with no, every and a third of the
+   episodes ending, NaN rows and an unaligned reset obs, bit for bit; the sum-tree find at capacities 1, 2, 32, 1,024 and 2^20
    × B 1, 8, 9, 31, 32, 33, 256, 257, 4,096, 4,097 (past it, a thread a
    mass) and 20,000, with masses that tie with a stored prefix sum at
    every chunk of levels, 0, the root and above it, a negative mass and
@@ -52,7 +55,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
    valid slot gives 0, and a decode call captured in a CUDA graph and
    replayed equals the eager call;
 4. main path, each run with the launch counts set to 0 just before it and
-   read just after: PPO on cheetah through the train CLI with the paper's
+   read just after. First the learning check (the reference's
+   ``tests/test_system.py`` check, ``tests/test_torch_learning.py`` on the
+   CPU): PPO pendulum on the stepped sync runtime through the pendulum and
+   GAE kernels, hidden 32, Adam 1e-3, 2 epochs of 2 minibatches, 4
+   samplers × 16 envs × 200 steps, 20 iterations, seed 3; the best 3 of
+   the last 6 mean returns must beat the first 4 by 30, printed as a
+   ``{"learning": ...}`` line. Then PPO on cheetah through the train CLI with the paper's
    budget (10 samplers × 16 envs × 125 steps = 20,000 samples per
    iteration, 3 iterations), the vector path (one 4096-env batch, 128
    steps, 2 iterations), and the CLI's default env, pendulum (10 × 16 ×
@@ -66,7 +75,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
    budget and replay, 3 iterations). Every log must be finite with the
    expected sample count, and each kernel's count must equal the steps,
    learns, inserts, draws and priority updates the run made (a ring
-   insert or gather is one launch for all the leaves). Then LM
+   insert or gather is one launch for all the leaves). Then envs with
+   half-precision obs and rewards (``env_kwargs={"dtype": ...}``): PPO
+   cheetah in bfloat16 at 10 × 16 × 125 (3 iterations) and fused at one
+   carry of 160 × 125 (5 iterations), SAC cheetah prioritized (2^20
+   slots, batch 256) in float16 at 10 × 16 × 125 (3 iterations), each bit
+   for bit equal to the same run with the plain versions
+   (``kernels="ref"``), with its launch counts (an ``{"env_dtypes": ...}``
+   line). Then LM
    serving at full width and depth with random weights: (a) the serve CLI
    with its defaults on hymba-1.5b (batch 4, prompt 16 + 128 meta tokens,
    32 tokens, 3 requests), (b) one prompt of 4,096 (P = 4,224, past the
@@ -413,6 +429,8 @@ RETURNS_EDGE_B = (1, 31, 32, 33, 160, 163, 4096)
 ENV_TIMING_B = (16, 64, 160, 4096)
 # the trig sweep: every float32 bit pattern, in chunks
 SWEEP_CHUNK = 1 << 24
+# the obs and reward dtypes of the env-step kernels beside float32
+HALF_DTYPES = (torch.float16, torch.bfloat16)
 
 
 def gae_edge_inputs(T, B, dones, seed):
@@ -473,8 +491,11 @@ def env_edge_inputs(name, B, ends, horizon, seed):
 
 
 def bits(x):
-    """A float32 tensor's bits as int32 (NaNs compare by their bits)."""
-    return x.view(torch.int32) if x.dtype == torch.float32 else x
+    """A float tensor's bits as an integer tensor (NaNs compare by their
+    bits)."""
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    return x.view(torch.int16) if x.dtype in HALF_DTYPES else x
 
 
 def same_bits(label, got, want):
@@ -670,6 +691,68 @@ def check_rl_edges():
             f"episode ends {CHEETAH_ENDS}, NaN rows and an unaligned reset "
             f"obs: {n} calls, every leaf bit for bit")
     check_trig_sweep()
+    check_env_dtypes()
+
+
+def check_env_dtypes():
+    """The three env-step kernels storing float16 and bfloat16 obs and
+    rewards (the reset obs in that dtype too), every leaf bit for bit
+    against the plain version at the same dtype, one launch a call: cheetah
+    at B in ``CHEETAH_EDGE_B``, pendulum and cart-pole at B in
+    ``ENV_EDGE_B``, each with no, every and a third of the episodes ending;
+    then each env with NaN in a few rows of every float input and a reset
+    obs one element past an aligned start."""
+    from repro_torch.kernels.env_step import ops as env_ops
+    from repro_torch.kernels.env_step import ref as env_ref
+    horizon, n = 50, 0
+    sweep = {"pendulum": ENV_EDGE_B, "cartpole": ENV_EDGE_B,
+             "cheetah": CHEETAH_EDGE_B}
+    for dtype in HALF_DTYPES:
+        for name, batches in sweep.items():
+            wrapper = env_ops.STEP_BATCH_CUDA[name]
+
+            def both(state, a, rs, ro, scale):
+                params = dict(max_episode_steps=horizon, reward_scale=scale,
+                              dtype=dtype, **p)
+                before = wrapper.launches
+                got = wrapper(state, a, rs, ro, **params)
+                want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro,
+                                                    **params)
+                torch.cuda.synchronize()
+                assert wrapper.launches == before + 1, name
+                assert got[1].dtype == got[2].dtype == dtype, name
+                return got, want
+
+            for B in batches:
+                for ends in CHEETAH_ENDS:
+                    state, a, rs, ro, p = env_edge_inputs(
+                        name, B, ends, horizon, seed=B + 8)
+                    got, want = both(state, a, rs, ro.to(dtype), 0.5)
+                    same_bits(f"{name} {dtype} B={B} ends {ends}", got,
+                              want)
+                    resets = int(got[3].sum())
+                    assert resets == {"none": 0, "all": B}.get(
+                        ends, resets) and (
+                        ends != "mixed" or resets >= B // 3), (
+                        name, dtype, B, ends)
+                    n += 1
+            state, a, rs, ro, p = env_edge_inputs(name, 4097, "mixed",
+                                                  horizon, seed=9)
+            ro = ro.to(dtype)
+            for leaf in (*state[:-1], a, *rs[:-1], ro):
+                leaf.view(-1)[torch.randperm(leaf.numel(),
+                                             device="cuda")[:40]] = float(
+                    "nan")
+            ro = torch.cat([torch.zeros(1, dtype=dtype, device="cuda"),
+                            ro.view(-1)])[1:].view(ro.shape)
+            got, want = both(state, a, rs, ro, 1.0)
+            same_bits(f"{name} {dtype} NaN rows, unaligned reset obs", got,
+                      want)
+            n += 1
+    log(f"check the env steps at float16 and bfloat16 obs and rewards: "
+        f"cheetah at B in {CHEETAH_EDGE_B}, pendulum and cart-pole at B in "
+        f"{ENV_EDGE_B}, x episode ends {CHEETAH_ENDS}, NaN rows and an "
+        f"unaligned reset obs: {n} calls, every leaf bit for bit")
 
 
 def ring_leaves(rows, gen, kinds=None):
@@ -2328,6 +2411,103 @@ def overlap_runs(cli, counted, runs, check_logs, zero_counts, device,
     return report
 
 
+def learning_run(counted, runs, zero_counts):
+    """The learning check (``tests/test_torch_learning.py``, the
+    reference's ``tests/test_system.py`` check) on the card, through the
+    kernels: PPO pendulum on the stepped sync runtime with the inline
+    backend, hidden 32, Adam 1e-3, 2 epochs of 2 minibatches, 4 samplers ×
+    16 envs × 200 steps, 20 iterations, seed 3. Every step goes through the
+    pendulum kernel and every learn through the GAE kernel; the best 3 of
+    the last 6 nonzero mean returns must beat the mean of the first 4 by
+    more than 30. Prints and returns the ``learning`` report."""
+    from repro_torch.experiment import ExperimentSpec, Schedule, run
+    samplers, envs, horizon, iters = 4, 16, 200, 20
+    label = "learning ppo pendulum 4 x 16 x 200"
+    t0 = time.perf_counter()
+    res = counted(label, lambda: run(ExperimentSpec(
+        env="pendulum", algo="ppo", backend="inline", runtime="sync",
+        model={"hidden": 32},
+        algo_kwargs={"lr": 1e-3, "epochs": 2, "minibatches": 2},
+        schedule=Schedule(num_samplers=samplers,
+                          global_batch=samplers * envs, horizon=horizon,
+                          iterations=iters, seed=3))))
+    seconds = time.perf_counter() - t0
+    assert runs[label] == zero_counts(
+        pendulum_step=iters * samplers * horizon, gae=iters), runs[label]
+    rets = [lg.mean_return for lg in res.logs]
+    early = [r for r in rets[:4] if r != 0.0]
+    late = sorted(r for r in rets[-6:] if r != 0.0)[-3:]
+    assert early and late, rets
+    early_mean, late_mean = sum(early) / len(early), sum(late) / len(late)
+    report = {"early_mean": early_mean, "late_mean": late_mean,
+              "gain": late_mean - early_mean, "bound": 30.0,
+              "seconds": seconds,
+              "launches": {k: v for k, v in runs[label].items() if v},
+              "returns": rets}
+    log(json.dumps({"learning": report}))
+    assert late_mean > early_mean + 30.0, (early_mean, late_mean)
+    return report
+
+
+def dtype_runs(counted, runs, check_logs, zero_counts):
+    """Envs with half-precision obs and rewards, each run with the kernels
+    (counted) and again with the plain versions (``kernels="ref"``, no
+    launch), the two bit for bit (carried tensors and mean returns): PPO
+    cheetah with bfloat16 obs at the paper's 10 × 16 × 125 (3 iterations)
+    and fused at one carry of 160 × 125 (5 iterations: 2 eager, a capture,
+    3 replays), and SAC cheetah prioritized (2^20 slots, batch 256) with
+    float16 obs at 10 × 16 × 125 (3 iterations). Returns the launches of
+    each kernel run."""
+    from repro_torch import kernels
+    from repro_torch.experiment import ExperimentSpec, Schedule, run
+    n, per, h = MAIN_SAMPLERS
+    B = n * per
+    stepped = Schedule(num_samplers=n, global_batch=B, horizon=h,
+                       iterations=3)
+    fused = Schedule(num_samplers=1, global_batch=B, horizon=h,
+                     iterations=5)
+    bf16, f16 = {"dtype": "bfloat16"}, {"dtype": "float16"}
+    sac_counts = dict(cheetah_step=3 * n * h, ring_insert=3,
+                      ring_gather=3 * 4, sumtree_find=3 * 4,
+                      sumtree_update=3 * (1 + 4))
+    cases = {
+        "ppo cheetah bfloat16 N=10": (
+            ExperimentSpec(env="cheetah", algo="ppo", env_kwargs=bf16,
+                           schedule=stepped),
+            dict(cheetah_step=3 * n * h, gae=3), B * h),
+        f"fused ppo cheetah bfloat16 B={B}": (
+            ExperimentSpec(env="cheetah", algo="ppo", runtime="fused",
+                           env_kwargs=bf16, schedule=fused),
+            dict(cheetah_step=5 * h, gae=5), B * h),
+        "sac cheetah float16 N=10 prioritized": (
+            ExperimentSpec(env="cheetah", algo="sac", buffer="prioritized",
+                           buffer_kwargs={"capacity": 1_000_000,
+                                          "batch_size": 256},
+                           env_kwargs=f16, schedule=stepped),
+            sac_counts, B * h),
+    }
+    out = {}
+    for label, (spec, want_counts, samples) in cases.items():
+        res = counted(label, lambda: run(spec))
+        check_logs(label, res.logs, spec.schedule.iterations, samples)
+        assert runs[label] == zero_counts(**want_counts), runs[label]
+        carry = carried(res)
+        assert any(x.dtype == torch.float16 or x.dtype == torch.bfloat16
+                   for x in carry), f"{label}: no half-precision obs carried"
+        got = (carry, [lg.mean_return for lg in res.logs])
+        del res
+        kernels.reset_launch_counts()
+        ref = run(dataclasses.replace(spec, kernels="ref"))
+        torch.cuda.synchronize()
+        assert sum(kernels.launch_counts().values()) == 0, label
+        same_carry(f"{label} vs kernels=ref", got,
+                   (carried(ref), [lg.mean_return for lg in ref.logs]))
+        del ref
+        out[label] = {k: v for k, v in runs[label].items() if v}
+    log(json.dumps({"env_dtypes": out}))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2541,6 +2721,11 @@ def main(argv=None) -> int:
         """Launch counts: ``nonzero`` as given, every other kernel 0."""
         return {**{k: 0 for k in kernels.KERNELS}, **nonzero}
 
+    # the learning check first: PPO pendulum through the kernels
+    learning_run(counted, runs, zero_counts)
+
+    phase_done("learning")
+
     n, per, h = MAIN_SAMPLERS
     with recording(InlineBackend) as trajs:
         logs = counted("cheetah N=10", lambda: cli(
@@ -2669,6 +2854,11 @@ def main(argv=None) -> int:
         f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
 
     phase_done("main path: ppo, sac, cart-pole, trpo, ddpg")
+
+    # slice 14: half-precision obs and rewards through the env-step kernels
+    dtype_runs(counted, runs, check_logs, zero_counts)
+
+    phase_done("env dtypes")
 
     # slice 9: the actor plane
     actor_report = actor_plane_runs(cli, counted, runs, check_logs,

@@ -12,7 +12,7 @@ they name in ``learner_noise`` from the plane's generator.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Protocol, Tuple, runtime_checkable
 
 import torch
 
@@ -35,6 +35,27 @@ from repro_torch.algos.trpo import TRPOConfig, make_trpo_learner
 from repro_torch.core import sampler as sampler_mod
 from repro_torch.models import mlp_policy
 from repro_torch.optim import adam
+
+
+@runtime_checkable
+class Algorithm(Protocol):
+    """What a learner must provide to ride the unified runtime."""
+
+    name: str
+
+    def init(self, generator: torch.Generator, env, device
+             ) -> Tuple[Any, Any]:
+        """Build ``(params, opt_state)`` for ``env`` on ``device``."""
+        ...
+
+    def learn(self, params, opt_state, batch) -> Tuple[Any, Any, Dict]:
+        """One update from a sampled batch."""
+        ...
+
+    def act(self, params, obs: torch.Tensor, noise: torch.Tensor
+            ) -> Tuple[torch.Tensor, Dict]:
+        """Actions (+ per-step extras) for a batch of observations."""
+        ...
 
 
 class AlgorithmBase:

@@ -66,7 +66,10 @@ def write_policy(policy: MLPPolicy, tree: Dict[str, Any]) -> None:
 
 
 def mlp_apply(layers, x: torch.Tensor) -> torch.Tensor:
-    """The reference's ``mlp_apply``: ``x @ w + b``, tanh between."""
+    """The reference's ``mlp_apply``: ``x @ w + b``, tanh between; a
+    float16 or bfloat16 obs is cast up to the weights' dtype first, as JAX
+    promotes it."""
+    x = x.to(torch.promote_types(x.dtype, layers[0]["w"].dtype))
     for i, lyr in enumerate(layers):
         x = x @ lyr["w"] + lyr["b"]
         if i < len(layers) - 1:

@@ -6,12 +6,14 @@ in the port's registry under the kind ``"arch"``; each entry is a lazy
 loader, so importing this package does not import every config module. The
 model of the port runs the ``dense``, ``ssm`` and ``hybrid`` families; the
 MoE, audio and vision-language configs are listed so that their names
-resolve, and ``models.transformer`` raises for them.
+resolve, and ``models.transformer`` raises for them. ``walle-mlp`` is the
+paper's own Gaussian-MLP policy (``models/mlp_policy.py``); the LM archs are
+``ASSIGNED_ARCHS``.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch import registry
 from repro_torch.configs.base import (  # noqa: F401
@@ -32,7 +34,10 @@ _ARCH_MODULES = {
     "musicgen-medium": "musicgen_medium",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "hymba-1.5b": "hymba_1_5b",
+    "walle-mlp": "walle_mlp",
 }
+
+ASSIGNED_ARCHS = [a for a in _ARCH_MODULES if a != "walle-mlp"]
 
 
 def _loader(module_name: str):
@@ -56,3 +61,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def list_archs() -> List[str]:
     return list(_ARCH_MODULES)
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in _ARCH_MODULES}

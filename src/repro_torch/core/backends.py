@@ -31,7 +31,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -52,6 +52,19 @@ class CollectStats:
     samples: int
     respawns: int = 0        # cumulative supervised worker respawns
     active_workers: int = 0  # live fleet size (process backend only)
+
+
+class SamplerBackend(Protocol):
+    """``collect(params) -> (merged_traj, stats)``; the carries are the
+    backend's. ``close()`` releases what the backend holds (idempotent)."""
+
+    num_samplers: int
+
+    def collect(self, params: Any) -> tuple:
+        ...
+
+    def close(self) -> None:
+        ...
 
 
 class BackendCloseMixin:
@@ -233,3 +246,16 @@ def _build_process(*, worker_specs: Optional[Sequence[Any]] = None,
 registry.register("backend", "inline", _build_inline)
 registry.register("backend", "threaded", _build_threaded)
 registry.register("backend", "process", _build_process)
+
+
+def make_backend(kind: str, rollout: Callable = None,
+                 carries: Optional[List[Any]] = None, env=None,
+                 horizon: Optional[int] = None, **kwargs):
+    """The backend registered as ``kind`` (the reference's factory, over the
+    registry's kind ``"backend"``): ``inline`` and ``threaded`` take the
+    per-sampler ``rollout`` and ``carries``; ``process`` takes
+    ``worker_specs``, ``params`` and ``device`` (and ``fault_plan``,
+    ``supervisor_cfg``) through ``kwargs``. The reference's ``mesh``
+    belongs to its sharded backend, which is not ported (ROADMAP.md)."""
+    return registry.make("backend", kind, rollout=rollout, carries=carries,
+                         env=env, horizon=horizon, **kwargs)

@@ -23,7 +23,7 @@ inject. Sampling an empty buffer raises (``replay.ensure_nonempty``).
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Protocol, runtime_checkable
 
 import torch
 
@@ -36,6 +36,37 @@ from repro_torch.kernels.sum_tree import (
     sumtree_find_batch,
     sumtree_update,
 )
+
+
+@runtime_checkable
+class ExperienceBuffer(Protocol):
+    """A buffer whose state the runner owns: state in, state out.
+
+    ``kind`` is ``"trajectory"`` (the sampled batch is a whole trajectory,
+    for on-policy learners) or ``"transitions"`` (flat replay minibatches,
+    for off-policy learners); ``experiment.build`` checks the algorithm
+    and the buffer against each other through it.
+    """
+
+    name: str
+    kind: str
+
+    def init(self, example: Any) -> Any:
+        """Allocate zeroed device storage shaped like ``example``."""
+        ...
+
+    def add(self, state: Any, traj: Dict[str, torch.Tensor]) -> Any:
+        """Absorb one collected trajectory batch."""
+        ...
+
+    def sample(self, state: Any, generator: torch.Generator
+               ) -> Dict[str, torch.Tensor]:
+        """Draw one learner batch."""
+        ...
+
+    def update_priorities(self, state: Any, indices, priorities) -> Any:
+        """Feed per-sample TD errors back (no-op unless prioritized)."""
+        ...
 
 
 def nstep_transitions(traj: Dict[str, torch.Tensor], n_step: int,
@@ -101,6 +132,9 @@ class FifoBuffer:
         return traj
 
     def sample(self, state, generator=None):
+        return state
+
+    def update_priorities(self, state, indices, priorities):
         return state
 
 

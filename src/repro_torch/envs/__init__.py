@@ -1,6 +1,11 @@
 from repro_torch import registry
 from repro_torch.envs import cartpole, cheetah, pendulum
-from repro_torch.envs.base import Env, auto_reset_batch  # noqa: F401
+from repro_torch.envs.base import (  # noqa: F401
+    Env,
+    auto_reset,
+    auto_reset_batch,
+    select_reset_batch,
+)
 from repro_torch.envs.vector import VectorEnv  # noqa: F401
 
 registry.register("env", "pendulum", pendulum.make)

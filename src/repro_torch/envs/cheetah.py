@@ -17,7 +17,8 @@ from repro_torch.kernels.env_step.ref import CHEETAH_N_JOINTS as N_JOINTS
 
 
 def make(max_episode_steps: int = 1000, reward_scale: float = 1.0,
-         ctrl_cost: float = 0.1) -> Env:
+         ctrl_cost: float = 0.1, dtype=torch.float32) -> Env:
+    dtype = env_step_ref.obs_dtype(dtype, "repro_torch/envs/cheetah.py")
     reward_scale = float(reward_scale)
     params = dict(max_episode_steps=max_episode_steps,
                   reward_scale=reward_scale, ctrl_cost=ctrl_cost)
@@ -30,11 +31,12 @@ def make(max_episode_steps: int = 1000, reward_scale: float = 1.0,
         zeros = torch.zeros(batch, device=device)
         state = (th, om, zeros, zeros.clone(),
                  torch.zeros(batch, dtype=torch.int32, device=device))
-        return state, env_step_ref.cheetah_obs(state)
+        return state, env_step_ref.cheetah_obs(state).to(dtype)
 
     def batch_step(state, actions, reset_state, reset_obs, impl=None):
         return env_step_ops.env_step("cheetah", state, actions, reset_state,
-                                     reset_obs, impl=impl, **params)
+                                     reset_obs, dtype=dtype, impl=impl,
+                                     **params)
 
     return Env(name="cheetah", obs_dim=2 * N_JOINTS + 2, act_dim=N_JOINTS,
                reset=reset, batch_step=batch_step,

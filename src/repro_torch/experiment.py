@@ -67,6 +67,7 @@ from repro_torch.core.orchestrator import (
     SyncRunner,
 )
 from repro_torch.envs.vector import VectorEnv
+from repro_torch.kernels.env_step import ref as env_ref
 
 RUNTIMES = ("sync", "async", "fused")
 
@@ -213,6 +214,15 @@ def _validate(spec: ExperimentSpec) -> None:
             "schedule.env_batch selects vector collection (one VectorEnv "
             "batch, a single carry); the process backend splits the batch "
             "across workers: use num_samplers × global_batch for it")
+    if spec.backend == "process" and env_ref.obs_dtype(
+            spec.env_kwargs.get("dtype", torch.float32),
+            f"repro_torch/envs/{spec.env}.py") == torch.bfloat16:
+        raise ValueError(
+            "backend 'process' moves trajectories through numpy views of "
+            "shared memory, and numpy has no bfloat16 (the reference's "
+            "workers fail on it, 'No cast function available'): use env "
+            "dtype float16 or float32 with it, or backend 'inline' or "
+            "'threaded'")
     if sched.overlap and spec.runtime == "async":
         raise ValueError(
             "schedule.overlap pipelines the sync/fused loop; the async "

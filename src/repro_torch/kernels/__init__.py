@@ -6,8 +6,15 @@ path, each beside its plain PyTorch version, selected by
 attribute counts the launches of its kernel, so a run can show that it went
 through the kernels. The counts change only under ``kernels.counts``'s
 lock, so launches from several threads are all counted.
+
+The RL families are registered under the registry kind ``"kernel"``, as in
+the reference: ``registry.make("kernel", "gae")`` returns the family's
+package, which holds its ops (``gae``, ``sum_tree``, ``replay_ring``,
+``env_step``).
 """
+from repro_torch import registry
 from repro_torch.kernels import counts
+from repro_torch.kernels import env_step, gae, replay_ring, sum_tree
 from repro_torch.kernels.decode_attention.ops import (  # noqa: F401
     decode_attention_cuda,
 )
@@ -54,6 +61,12 @@ KERNELS = {
     "decode_attention": decode_attention_cuda,
     "selective_scan": selective_scan_cuda,
 }
+
+
+registry.register("kernel", "gae", lambda: gae)
+registry.register("kernel", "sum_tree", lambda: sum_tree)
+registry.register("kernel", "replay_ring", lambda: replay_ring)
+registry.register("kernel", "env_step", lambda: env_step)
 
 
 def reset_launch_counts() -> None:

@@ -40,6 +40,13 @@
 // wrapper packs it with struct.pack in the same layout), so a launch
 // converts one ctypes argument.
 //
+// Observations and rewards come out in float32, float16 or bfloat16 (the
+// env's dtype, out_type in the argument block); the reset candidates' obs
+// arrive in that type too. The physics and the state stay float32: each
+// obs and reward value is rounded once, at its store, to nearest even, as
+// the plain version's .to(dtype) (and the reference's .astype) rounds it,
+// and a reset obs is copied through with its bits.
+//
 // Built with -fmad=false: no FMA contraction, so results round like the
 // plain PyTorch version's separate elementwise ops. sinf/cosf/sincosf are
 // CUDA's full-range versions (no fast math); fmodf is exact. Cart-pole's
@@ -47,6 +54,8 @@
 // half-length, 4/3) and its two fall limits arrive as floats rounded once
 // from the host's double, so every comparison and division is the float32
 // one of the plain version.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -71,19 +80,38 @@ __device__ __forceinline__ float angle_norm(float x) {
   return r - kPi;
 }
 
+// The stored value of a float32 obs or reward in the output type: rounded
+// once, to nearest even.
+template <typename T>
+__device__ __forceinline__ T to_out(float x);
+template <>
+__device__ __forceinline__ float to_out<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __half to_out<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 to_out<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// out_type codes of the argument blocks (ops.py's _OUT_TYPES)
+enum OutType { kF32 = 0, kF16 = 1, kBF16 = 2 };
+
 constexpr int kJ = 6;                  // cheetah joints
 constexpr int kCheetahObs = 2 * kJ + 2;
 
 // The packed argument blocks, in the order of the wrappers' struct formats
 // (ops.py): the inputs, the outputs (the next state's leaves, obs, reward,
-// done), the stream, B and the horizon, the float scalars.
+// done), the stream, B, the horizon and the out_type, the float scalars.
+// The reset obs, obs and reward pointers are of the out_type.
 struct PendulumArgs {
   const float* th; const float* thdot; const int32_t* t; const float* act;
-  const float* rth; const float* rtd; const int32_t* rt; const float* robs;
-  float* oth; float* otd; int32_t* ot; float* oobs; float* orew;
+  const float* rth; const float* rtd; const int32_t* rt; const void* robs;
+  float* oth; float* otd; int32_t* ot; void* oobs; void* orew;
   uint8_t* odone;
   void* stream;
-  int B, max_episode_steps;
+  int B, max_episode_steps, out_type;
   float max_torque, reward_scale, grav_coef, torque_coef;
 };
 
@@ -91,11 +119,11 @@ struct CartpoleArgs {
   const float* x; const float* xdot; const float* th; const float* thdot;
   const int32_t* t; const float* act;
   const float* rx; const float* rxd; const float* rth; const float* rtd;
-  const int32_t* rt; const float* robs;
-  float* ox; float* oxd; float* oth; float* otd; int32_t* ot; float* oobs;
-  float* orew; uint8_t* odone;
+  const int32_t* rt; const void* robs;
+  float* ox; float* oxd; float* oth; float* otd; int32_t* ot; void* oobs;
+  void* orew; uint8_t* odone;
   void* stream;
-  int B, max_episode_steps;
+  int B, max_episode_steps, out_type;
   float force_max, reward_scale, total_m, pm_l, four_thirds, x_limit,
       th_limit;
 };
@@ -104,27 +132,30 @@ struct CheetahArgs {
   const float* th; const float* om; const float* vx; const float* pitch;
   const int32_t* t; const float* act;
   const float* rth; const float* rom; const float* rvx; const float* rpi;
-  const int32_t* rt; const float* robs;
-  float* oth; float* oom; float* ovx; float* opi; int32_t* ot; float* oobs;
-  float* orew; uint8_t* odone;
+  const int32_t* rt; const void* robs;
+  float* oth; float* oom; float* ovx; float* opi; int32_t* ot; void* oobs;
+  void* orew; uint8_t* odone;
   void* stream;
-  int B, max_episode_steps;
+  int B, max_episode_steps, out_type;
   float ctrl_cost, reward_scale;
 };
 
 // pendulum: one thread per env; a lane reads its env's row of reset obs
-// and writes its row of obs, three floats at a stride of three.
+// and writes its row of obs, three values at a stride of three.
+template <typename T>
 __global__ void __launch_bounds__(kThreads) pendulum_step_kernel(
     const PendulumArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.B) return;
+  const T* robs = static_cast<const T*>(a.robs);
+  T* oobs = static_cast<T*>(a.oobs);
   float th_i = a.th[i], td = a.thdot[i], u = a.act[i];
   const int32_t t_i = a.t[i];
   const float r_th = a.rth[i], r_td = a.rtd[i];
   const int32_t r_t = a.rt[i];
-  float r_ob[3];
+  T r_ob[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) r_ob[c] = a.robs[3 * (size_t)i + c];
+  for (int c = 0; c < 3; ++c) r_ob[c] = robs[3 * (size_t)i + c];
   const int32_t nt = t_i + 1;
   const bool done = nt >= a.max_episode_steps;
   u = clip(u, -a.max_torque, a.max_torque);
@@ -144,11 +175,11 @@ __global__ void __launch_bounds__(kThreads) pendulum_step_kernel(
   a.oth[i] = done ? r_th : nth;
   a.otd[i] = done ? r_td : td;
   a.ot[i] = done ? r_t : nt;
-  a.orew[i] = rew;
+  static_cast<T*>(a.orew)[i] = to_out<T>(rew);
   a.odone[i] = done ? 1 : 0;
 #pragma unroll
   for (int c = 0; c < 3; ++c)
-    a.oobs[3 * (size_t)i + c] = done ? r_ob[c] : ob[c];
+    oobs[3 * (size_t)i + c] = done ? r_ob[c] : to_out<T>(ob[c]);
 }
 
 // cheetah: six lanes per env, one per joint, five envs on lanes 0..29 of a
@@ -166,17 +197,18 @@ constexpr int kCheetahEnvsPerWarp = 32 / kJ;                      // 5
 constexpr int kCheetahEnvs = kCheetahWarps * kCheetahEnvsPerWarp;  // 20
 constexpr int kCheetahThreads = 32 * kCheetahWarps;
 
+template <typename T>
 __global__ void __launch_bounds__(kCheetahThreads) cheetah_step_kernel(
     int B, const float* __restrict__ th, const float* __restrict__ om,
     const float* __restrict__ vx, const float* __restrict__ pitch,
     const int32_t* __restrict__ t, const float* __restrict__ act,
     const float* __restrict__ rth, const float* __restrict__ rom,
     const float* __restrict__ rvx, const float* __restrict__ rpi,
-    const int32_t* __restrict__ rt, const float* __restrict__ robs,
+    const int32_t* __restrict__ rt, const T* __restrict__ robs,
     float* __restrict__ oth, float* __restrict__ oom,
     float* __restrict__ ovx, float* __restrict__ opi,
-    int32_t* __restrict__ ot, float* __restrict__ oobs,
-    float* __restrict__ orew, uint8_t* __restrict__ odone,
+    int32_t* __restrict__ ot, T* __restrict__ oobs,
+    T* __restrict__ orew, uint8_t* __restrict__ odone,
     int max_episode_steps, float ctrl_cost, float reward_scale) {
   const int lane = threadIdx.x & 31;
   const int g = lane / kJ, j = lane - g * kJ, base = g * kJ;
@@ -203,8 +235,8 @@ __global__ void __launch_bounds__(kCheetahThreads) cheetah_step_kernel(
   const int32_t nt = t_i + 1;
   const bool done = nt >= max_episode_steps;
   // lane j's floats of the reset candidates; lanes 0, 1, 2 also vx, pitch, t
-  float r_th = 0.0f, r_om = 0.0f, r_ob0 = 0.0f, r_ob1 = 0.0f, r_ob2 = 0.0f;
-  float r_row = 0.0f;
+  float r_th = 0.0f, r_om = 0.0f, r_row = 0.0f;
+  T r_ob0 = to_out<T>(0.0f), r_ob1 = r_ob0, r_ob2 = r_ob0;
   int32_t r_t = 0;
   if (active && done) {
     r_th = rth[k6];
@@ -265,12 +297,12 @@ __global__ void __launch_bounds__(kCheetahThreads) cheetah_step_kernel(
   } else {
     oth[k6] = my_th1;
     oom[k6] = my_om1;
-    oobs[k14] = my_th1;
-    oobs[k14 + kJ] = my_om1;
-    if (j < 2) oobs[k14 + 2 * kJ] = j == 0 ? nvx : npi;
+    oobs[k14] = to_out<T>(my_th1);
+    oobs[k14 + kJ] = to_out<T>(my_om1);
+    if (j < 2) oobs[k14 + 2 * kJ] = to_out<T>(j == 0 ? nvx : npi);
   }
   if (j == 0) {
-    orew[i] = rew;
+    orew[i] = to_out<T>(rew);
     odone[i] = done ? 1 : 0;
     ovx[i] = done ? r_row : nvx;
   } else if (j == 1) {
@@ -280,11 +312,13 @@ __global__ void __launch_bounds__(kCheetahThreads) cheetah_step_kernel(
   }
 }
 
-// cart-pole: one thread per env; a row of obs and of reset obs is one
-// float4 where both arrays are 16-byte aligned (kVec), else four floats.
-template <bool kVec>
+// cart-pole: one thread per env; a float32 row of obs and of reset obs is
+// one float4 where both arrays are 16-byte aligned (kVec), else four
+// values (always so for the 2-byte types).
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads) cartpole_step_kernel(
     const CartpoleArgs a) {
+  static_assert(!kVec || sizeof(T) == 4, "float4 rows are float32 rows");
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.B) return;
   const float a0 = a.act[i];
@@ -293,12 +327,17 @@ __global__ void __launch_bounds__(kThreads) cartpole_step_kernel(
   const float r_x = a.rx[i], r_xd = a.rxd[i], r_th = a.rth[i],
               r_td = a.rtd[i];
   const int32_t r_t = a.rt[i];
-  float4 r_ob;
-  if (kVec) {
-    r_ob = reinterpret_cast<const float4*>(a.robs)[i];
+  T r_ob[4];
+  if constexpr (kVec) {
+    const float4 v = static_cast<const float4*>(a.robs)[i];
+    r_ob[0] = v.x;
+    r_ob[1] = v.y;
+    r_ob[2] = v.z;
+    r_ob[3] = v.w;
   } else {
-    const float* ro = a.robs + 4 * (size_t)i;
-    r_ob = make_float4(ro[0], ro[1], ro[2], ro[3]);
+    const T* ro = static_cast<const T*>(a.robs) + 4 * (size_t)i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) r_ob[c] = ro[c];
   }
   const float nx = x_i + 0.02f * xd;
   const float nth = th_i + 0.02f * td;
@@ -323,17 +362,18 @@ __global__ void __launch_bounds__(kThreads) cartpole_step_kernel(
   a.oth[i] = done ? r_th : nth;
   a.otd[i] = done ? r_td : ntd;
   a.ot[i] = done ? r_t : nt;
-  a.orew[i] = rew;
+  static_cast<T*>(a.orew)[i] = to_out<T>(rew);
   a.odone[i] = done ? 1 : 0;
-  const float4 ob = done ? r_ob : make_float4(nx, nxd, nth, ntd);
-  if (kVec) {
-    reinterpret_cast<float4*>(a.oobs)[i] = ob;
+  const float stepped[4] = {nx, nxd, nth, ntd};
+  T ob[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) ob[c] = done ? r_ob[c] : to_out<T>(stepped[c]);
+  if constexpr (kVec) {
+    static_cast<float4*>(a.oobs)[i] = make_float4(ob[0], ob[1], ob[2], ob[3]);
   } else {
-    float* o = a.oobs + 4 * (size_t)i;
-    o[0] = ob.x;
-    o[1] = ob.y;
-    o[2] = ob.z;
-    o[3] = ob.w;
+    T* o = static_cast<T*>(a.oobs) + 4 * (size_t)i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[c] = ob[c];
   }
 }
 
@@ -350,31 +390,65 @@ extern "C" int pendulum_args_size() { return (int)sizeof(PendulumArgs); }
 extern "C" int cartpole_args_size() { return (int)sizeof(CartpoleArgs); }
 extern "C" int cheetah_args_size() { return (int)sizeof(CheetahArgs); }
 
-extern "C" int pendulum_step(const void* packed) {
-  const PendulumArgs a = unpack<PendulumArgs>(packed);
-  pendulum_step_kernel<<<(a.B + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)a.stream>>>(a);
+// the launches of one out_type; an unknown code launches nothing
+template <typename T>
+void launch_pendulum(const PendulumArgs& a) {
+  pendulum_step_kernel<T><<<(a.B + kThreads - 1) / kThreads, kThreads, 0,
+                            (cudaStream_t)a.stream>>>(a);
+}
+
+template <typename T>
+void launch_cartpole(const CartpoleArgs& a) {
+  const int blocks = (a.B + kThreads - 1) / kThreads;
+  const cudaStream_t stream = (cudaStream_t)a.stream;
+  if constexpr (sizeof(T) == 4) {
+    if ((((uintptr_t)a.robs | (uintptr_t)a.oobs) & 15u) == 0) {
+      cartpole_step_kernel<T, true><<<blocks, kThreads, 0, stream>>>(a);
+      return;
+    }
+  }
+  cartpole_step_kernel<T, false><<<blocks, kThreads, 0, stream>>>(a);
+}
+
+template <typename T>
+void launch_cheetah(const CheetahArgs& a) {
+  int blocks = (a.B + kCheetahEnvs - 1) / kCheetahEnvs;
+  cheetah_step_kernel<T><<<blocks, kCheetahThreads, 0,
+                           (cudaStream_t)a.stream>>>(
+      a.B, a.th, a.om, a.vx, a.pitch, a.t, a.act, a.rth, a.rom, a.rvx,
+      a.rpi, a.rt, static_cast<const T*>(a.robs), a.oth, a.oom, a.ovx,
+      a.opi, a.ot, static_cast<T*>(a.oobs), static_cast<T*>(a.orew),
+      a.odone, a.max_episode_steps, a.ctrl_cost, a.reward_scale);
+}
+
+// cudaErrorInvalidValue for an out_type the library does not know
+template <typename Args, void (*F32)(const Args&), void (*F16)(const Args&),
+          void (*BF16)(const Args&)>
+int dispatch(const void* packed) {
+  const Args a = unpack<Args>(packed);
+  switch (a.out_type) {
+    case kF32: F32(a); break;
+    case kF16: F16(a); break;
+    case kBF16: BF16(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
+}
+
+extern "C" int pendulum_step(const void* packed) {
+  return dispatch<PendulumArgs, launch_pendulum<float>,
+                  launch_pendulum<__half>,
+                  launch_pendulum<__nv_bfloat16>>(packed);
 }
 
 extern "C" int cartpole_step(const void* packed) {
-  const CartpoleArgs a = unpack<CartpoleArgs>(packed);
-  const int blocks = (a.B + kThreads - 1) / kThreads;
-  const cudaStream_t stream = (cudaStream_t)a.stream;
-  if ((((uintptr_t)a.robs | (uintptr_t)a.oobs) & 15u) == 0)
-    cartpole_step_kernel<true><<<blocks, kThreads, 0, stream>>>(a);
-  else
-    cartpole_step_kernel<false><<<blocks, kThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  return dispatch<CartpoleArgs, launch_cartpole<float>,
+                  launch_cartpole<__half>,
+                  launch_cartpole<__nv_bfloat16>>(packed);
 }
 
 extern "C" int cheetah_step(const void* packed) {
-  const CheetahArgs a = unpack<CheetahArgs>(packed);
-  int blocks = (a.B + kCheetahEnvs - 1) / kCheetahEnvs;
-  cheetah_step_kernel<<<blocks, kCheetahThreads, 0,
-                        (cudaStream_t)a.stream>>>(
-      a.B, a.th, a.om, a.vx, a.pitch, a.t, a.act, a.rth, a.rom, a.rvx,
-      a.rpi, a.rt, a.robs, a.oth, a.oom, a.ovx, a.opi, a.ot, a.oobs,
-      a.orew, a.odone, a.max_episode_steps, a.ctrl_cost, a.reward_scale);
-  return (int)cudaGetLastError();
+  return dispatch<CheetahArgs, launch_cheetah<float>,
+                  launch_cheetah<__half>,
+                  launch_cheetah<__nv_bfloat16>>(packed);
 }

@@ -4,9 +4,12 @@
 ``env_step(name, state, actions, reset_state, reset_obs, **params)`` takes
 the reference layout (state leaves ``(B,)``/``(B, 6)``, ``t`` int32, actions
 ``(B, act_dim)``, reset candidates alike) and returns ``(next_state, obs,
-rewards, dones)`` with ``dones`` bool. Selection (``kernels.select``): a CPU
-tensor takes the plain version (``ref.py``); a CUDA tensor launches the
-kernel of ``csrc/env_step.cu`` unless the mode is ``ref``.
+rewards, dones)`` with ``dones`` bool; ``dtype`` (``ref.OBS_DTYPES``:
+float32, float16 or bfloat16) is the type of the obs, the rewards and the
+reset obs, and the kernels store each of those types themselves.
+Selection (``kernels.select``): a CPU tensor takes the plain version
+(``ref.py``); a CUDA tensor launches the kernel of ``csrc/env_step.cu``
+unless the mode is ``ref``. No dtype sends a call to the plain version.
 
 The kernels replace ``pendulum_step_pallas``, ``cartpole_step_pallas``
 and ``cheetah_step_pallas`` (``repro/kernels/env_step/env_step_pallas.py``).
@@ -46,28 +49,43 @@ _F32, _I32 = torch.float32, torch.int32
 
 # The argument blocks of ``csrc/env_step.cu`` (PendulumArgs, CartpoleArgs,
 # CheetahArgs): input pointers, output pointers (the next state's leaves,
-# obs, rewards, dones), the stream, B and the
-# horizon, then the float scalars; "0P" pads the end as the C struct is
-# padded. ``_lib`` checks each size against the library's.
-_ARGS = {"pendulum": struct.Struct("@15P2i4f0P"),
-         "cartpole": struct.Struct("@21P2i7f0P"),
-         "cheetah": struct.Struct("@21P2i2f0P")}
+# obs, rewards, dones), the stream, B, the horizon and the obs type's code,
+# then the float scalars; "0P" pads the end as the C struct is padded.
+# ``_lib`` checks each size against the library's.
+_ARGS = {"pendulum": struct.Struct("@15P3i4f0P"),
+         "cartpole": struct.Struct("@21P3i7f0P"),
+         "cheetah": struct.Struct("@21P3i2f0P")}
 
-# (name, dtype) of each leaf a wrapper takes, in its argument block's order
-_PENDULUM_LEAVES = (("th", _F32), ("thdot", _F32), ("t", _I32),
-                    ("actions", _F32), ("reset th", _F32),
-                    ("reset thdot", _F32), ("reset t", _I32),
-                    ("reset obs", _F32))
-_CARTPOLE_LEAVES = (("x", _F32), ("xdot", _F32), ("th", _F32),
-                    ("thdot", _F32), ("t", _I32), ("actions", _F32),
-                    ("reset x", _F32), ("reset xdot", _F32),
-                    ("reset th", _F32), ("reset thdot", _F32),
-                    ("reset t", _I32), ("reset obs", _F32))
-_CHEETAH_LEAVES = (("th", _F32), ("om", _F32), ("vx", _F32),
-                   ("pitch", _F32), ("t", _I32), ("actions", _F32),
-                   ("reset th", _F32), ("reset om", _F32),
-                   ("reset vx", _F32), ("reset pitch", _F32),
-                   ("reset t", _I32), ("reset obs", _F32))
+# the library's out_type code of each obs dtype (``OutType``)
+_OUT_TYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+
+
+def _leaf_table(*leaves):
+    """obs dtype -> ``(name, dtype)`` of each leaf a wrapper takes, in its
+    argument block's order: ``leaves``, then the reset obs of that dtype."""
+    return {dt: (*leaves, ("reset obs", dt)) for dt in ref.OBS_DTYPES}
+
+
+_PENDULUM_LEAVES = _leaf_table(
+    ("th", _F32), ("thdot", _F32), ("t", _I32), ("actions", _F32),
+    ("reset th", _F32), ("reset thdot", _F32), ("reset t", _I32))
+_CARTPOLE_LEAVES = _leaf_table(
+    ("x", _F32), ("xdot", _F32), ("th", _F32), ("thdot", _F32), ("t", _I32),
+    ("actions", _F32), ("reset x", _F32), ("reset xdot", _F32),
+    ("reset th", _F32), ("reset thdot", _F32), ("reset t", _I32))
+_CHEETAH_LEAVES = _leaf_table(
+    ("th", _F32), ("om", _F32), ("vx", _F32), ("pitch", _F32), ("t", _I32),
+    ("actions", _F32), ("reset th", _F32), ("reset om", _F32),
+    ("reset vx", _F32), ("reset pitch", _F32), ("reset t", _I32))
+
+_HERE = "repro_torch/kernels/env_step/ops.py"
+
+
+def _leaves(table, dtype):
+    """The leaves of ``table`` for obs ``dtype``; another dtype raises
+    ``ValueError``."""
+    return table[ref.obs_dtype(dtype, _HERE)]
+
 
 # folded in double on the host, as the reference's Python folds them, then
 # rounded once to float by ``struct`` (as JAX rounds them where they meet
@@ -111,18 +129,20 @@ def _check(tensors, shapes, leaves, device):
 def _outputs(state, reset_obs):
     """Fresh outputs of a step, each its own contiguous tensor: the next
     state's leaves shaped like ``state``'s, obs like ``reset_obs``, then
-    rewards float32 and dones bool, both ``(B,)``."""
+    rewards of the obs dtype and dones bool, both ``(B,)``."""
     t = state[-1]
     return (*[torch.empty_like(x) for x in state], torch.empty_like(reset_obs),
-            torch.empty_like(t, dtype=_F32),
+            torch.empty_like(t, dtype=reset_obs.dtype),
             torch.empty_like(t, dtype=torch.bool))
 
 
 def _pack(name, tensors, dev, B, horizon, floats):
     """The argument block of ``name``: ``tensors``' pointers, the stream,
-    B, the horizon and the float scalars."""
+    B, the horizon, the code of the obs' dtype (the obs are ``tensors[-3]``,
+    before the rewards and dones) and the float scalars."""
     return _ARGS[name].pack(*[x.data_ptr() for x in tensors],
-                            stream.current(dev), B, int(horizon), *floats)
+                            stream.current(dev), B, int(horizon),
+                            _OUT_TYPES[tensors[-3].dtype], *floats)
 
 
 def _call(name, block):
@@ -139,7 +159,8 @@ def _launch(name, tensors, dev, B, horizon, floats):
 
 
 def pendulum_step_cuda(state, actions, reset_state, reset_obs, *,
-                       max_episode_steps, reward_scale, max_torque):
+                       max_episode_steps, reward_scale, max_torque,
+                       dtype=_F32):
     """Launch the pendulum kernel; same contract as
     ``ref.pendulum_step_batch_ref``."""
     th, thdot, t = state
@@ -147,8 +168,8 @@ def pendulum_step_cuda(state, actions, reset_state, reset_obs, *,
     B, dev = th.shape[0], th.device
     v = (B,)
     inputs = (th, thdot, t, actions, rth, rtd, rt, reset_obs)
-    _check(inputs, (v, v, v, (B, 1), v, v, v, (B, 3)), _PENDULUM_LEAVES,
-           dev)
+    _check(inputs, (v, v, v, (B, 1), v, v, v, (B, 3)),
+           _leaves(_PENDULUM_LEAVES, dtype), dev)
     outs = _outputs(state, reset_obs)
     if B:
         _launch("pendulum", inputs + outs, dev, B, max_episode_steps,
@@ -161,7 +182,8 @@ pendulum_step_cuda.launches = 0
 
 
 def cartpole_step_cuda(state, actions, reset_state, reset_obs, *,
-                       max_episode_steps, reward_scale, force_max):
+                       max_episode_steps, reward_scale, force_max,
+                       dtype=_F32):
     """Launch the cart-pole kernel; same contract as
     ``ref.cartpole_step_batch_ref``."""
     x, xdot, th, thdot, t = state
@@ -171,7 +193,7 @@ def cartpole_step_cuda(state, actions, reset_state, reset_obs, *,
     inputs = (x, xdot, th, thdot, t, actions, rx, rxd, rth, rtd, rt,
               reset_obs)
     _check(inputs, (v, v, v, v, v, (B, 1), v, v, v, v, v, (B, 4)),
-           _CARTPOLE_LEAVES, dev)
+           _leaves(_CARTPOLE_LEAVES, dtype), dev)
     outs = _outputs(state, reset_obs)
     if B:
         _launch("cartpole", inputs + outs, dev, B, max_episode_steps,
@@ -184,7 +206,8 @@ cartpole_step_cuda.launches = 0
 
 
 def cheetah_step_cuda(state, actions, reset_state, reset_obs, *,
-                      max_episode_steps, reward_scale, ctrl_cost):
+                      max_episode_steps, reward_scale, ctrl_cost,
+                      dtype=_F32):
     """Launch the cheetah kernel; same contract as
     ``ref.cheetah_step_batch_ref``."""
     th, om, vx, pitch, t = state
@@ -194,7 +217,7 @@ def cheetah_step_cuda(state, actions, reset_state, reset_obs, *,
     inputs = (th, om, vx, pitch, t, actions, rth, rom, rvx, rpi, rt,
               reset_obs)
     _check(inputs, (j, j, v, v, v, j, j, j, v, v, v, (B, 2 * j[1] + 2)),
-           _CHEETAH_LEAVES, dev)
+           _leaves(_CHEETAH_LEAVES, dtype), dev)
     outs = _outputs(state, reset_obs)
     if B:
         _launch("cheetah", inputs + outs, dev, B, max_episode_steps,
@@ -213,18 +236,20 @@ STEP_BATCH_CUDA = {
 
 
 def env_step(name: str, state, actions, reset_state, reset_obs, *,
-             impl=None, **params):
+             dtype=_F32, impl=None, **params):
     """Fused batched physics step + auto-reset select for env ``name``.
 
     Returns ``(next_state, obs, rewards, dones)``; the reset candidates
     replace the stepped state and obs wherever ``dones`` is set, and
-    rewards stay the terminal transition's. ``params`` are the env's
-    ``make`` kwargs (horizon, scales)."""
+    rewards stay the terminal transition's. Obs and rewards are of
+    ``dtype`` (``ref.OBS_DTYPES``; another raises ``ValueError`` on every
+    device). ``params`` are the env's ``make`` kwargs (horizon, scales)."""
     if name not in ref.STEP_BATCH_REF:
         raise KeyError(f"no env_step kernel for env {name!r}; choose from "
                        f"{sorted(ref.STEP_BATCH_REF)} (others: ROADMAP.md)")
+    dtype = ref.obs_dtype(dtype, _HERE)
     if select.use_kernel(impl, actions):
         return STEP_BATCH_CUDA[name](state, actions, reset_state, reset_obs,
-                                     **params)
+                                     dtype=dtype, **params)
     return ref.STEP_BATCH_REF[name](state, actions, reset_state, reset_obs,
-                                    **params)
+                                    dtype=dtype, **params)

@@ -14,11 +14,17 @@ CUDA kernel in ``csrc/env_step.cu`` evaluates the same expressions.
 Reset candidates are inputs: they are drawn by the env modules from a
 ``torch.Generator`` and selected where ``done`` is set; rewards stay the
 terminal transition's (the ``auto_reset`` contract).
+
+``dtype`` (one of ``OBS_DTYPES``) is the type of the observations and
+rewards: the physics and the state stay float32, and the obs and reward
+are cast once at the end, as the reference's ``.astype(dtype)``; the reset
+candidates' obs arrive in ``dtype`` too.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # --------------------------------------------------------------- constants
@@ -44,6 +50,31 @@ CHEETAH_DAMPING = 1.5
 CHEETAH_STIFFNESS = 4.0
 CHEETAH_GEAR = 6.0
 CHEETAH_COUPLING = 0.8
+
+# the obs and reward types the env-step kernels store
+OBS_DTYPES = (torch.float32, torch.float16, torch.bfloat16)
+_OBS_DTYPE_NAMES = {str(d).removeprefix("torch."): d for d in OBS_DTYPES}
+
+
+def obs_dtype(dtype, where: str) -> torch.dtype:
+    """The torch dtype of ``dtype``: a torch dtype, or what the reference's
+    ``jnp.dtype`` reads (a name such as ``"bfloat16"``, as an
+    ``env_kwargs`` JSON gives it, an alias such as ``"half"``, a numpy
+    type). Anything but float32, float16 and bfloat16 raises
+    ``ValueError`` naming ``where``."""
+    got = dtype
+    if not isinstance(dtype, torch.dtype):
+        try:
+            name = ("bfloat16" if isinstance(dtype, str)
+                    and dtype == "bfloat16" else np.dtype(dtype).name)
+        except TypeError:
+            name = None
+        got = _OBS_DTYPE_NAMES.get(name)
+    if got not in OBS_DTYPES:
+        raise ValueError(
+            f"{where}: dtype {dtype!r} is not an obs dtype of the env-step "
+            f"kernels; choose from {sorted(_OBS_DTYPE_NAMES)}")
+    return got
 
 
 def _angle_norm(x: torch.Tensor) -> torch.Tensor:
@@ -89,7 +120,8 @@ def pendulum_obs(state) -> torch.Tensor:
 
 
 def pendulum_step_batch_ref(state, actions, reset_state, reset_obs, *,
-                            max_episode_steps, reward_scale, max_torque):
+                            max_episode_steps, reward_scale, max_torque,
+                            dtype=torch.float32):
     """Batched pendulum step + auto-reset. state leaves (B,), (B,),
     int32 (B,); actions (B, 1)."""
     th, thdot, t = state
@@ -104,10 +136,10 @@ def pendulum_step_batch_ref(state, actions, reset_state, reset_obs, *,
     reward = -cost
     if reward_scale != 1.0:
         reward = reward * reward_scale
-    obs = pendulum_obs((th, thdot, t))
+    obs = pendulum_obs((th, thdot, t)).to(dtype)
     state, obs = select_reset_batch(done, reset_state, reset_obs,
                                     (th, thdot, t), obs)
-    return state, obs, reward, done
+    return state, obs, reward.to(dtype), done
 
 
 # ================================================================ cartpole
@@ -117,7 +149,8 @@ def cartpole_obs(state) -> torch.Tensor:
 
 
 def cartpole_step_batch_ref(state, actions, reset_state, reset_obs, *,
-                            max_episode_steps, reward_scale, force_max):
+                            max_episode_steps, reward_scale, force_max,
+                            dtype=torch.float32):
     """Batched cart-pole step + auto-reset. state leaves (B,) x4, int32
     (B,); actions (B, 1). The force uses the clipped action, the reward's
     control cost the unclipped one, as in the reference."""
@@ -144,10 +177,10 @@ def cartpole_step_batch_ref(state, actions, reset_state, reset_obs, *,
     reward = 1.0 - 0.01 * (a0 * a0) - 1.0 * fell
     if reward_scale != 1.0:
         reward = reward * reward_scale
-    obs = cartpole_obs((x, xdot, th, thdot, t))
+    obs = cartpole_obs((x, xdot, th, thdot, t)).to(dtype)
     state, obs = select_reset_batch(done, reset_state, reset_obs,
                                     (x, xdot, th, thdot, t), obs)
-    return state, obs, reward, done
+    return state, obs, reward.to(dtype), done
 
 
 # ================================================================= cheetah
@@ -157,7 +190,8 @@ def cheetah_obs(state) -> torch.Tensor:
 
 
 def cheetah_step_batch_ref(state, actions, reset_state, reset_obs, *,
-                           max_episode_steps, reward_scale, ctrl_cost):
+                           max_episode_steps, reward_scale, ctrl_cost,
+                           dtype=torch.float32):
     """Batched cheetah step + auto-reset. th/om (B, 6), vx/pitch (B,),
     t int32 (B,); actions (B, 6)."""
     th, om, vx, pitch, t = state
@@ -179,10 +213,10 @@ def cheetah_step_batch_ref(state, actions, reset_state, reset_obs, *,
     if reward_scale != 1.0:
         reward = reward * reward_scale
     done = t >= max_episode_steps
-    obs = cheetah_obs((th, om, vx, pitch, t))
+    obs = cheetah_obs((th, om, vx, pitch, t)).to(dtype)
     state, obs = select_reset_batch(done, reset_state, reset_obs,
                                     (th, om, vx, pitch, t), obs)
-    return state, obs, reward, done
+    return state, obs, reward.to(dtype), done
 
 
 STEP_BATCH_REF = {

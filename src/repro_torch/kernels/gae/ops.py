@@ -117,7 +117,11 @@ discounted_returns_cuda.launches = 0
 def gae(rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor,
         last_value: torch.Tensor, gamma: float = 0.99, lam: float = 0.95,
         *, impl: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Advantages + returns; see ``ref.gae_ref`` for semantics."""
+    """Advantages + returns; see ``ref.gae_ref`` for semantics. Float16
+    or bfloat16 rewards (an env of that dtype) are cast up to the values'
+    dtype first, exactly, as JAX promotes them where they meet the values:
+    both paths then take float32."""
+    rewards = rewards.to(torch.promote_types(rewards.dtype, values.dtype))
     if not select.use_kernel(impl, rewards):
         return gae_ref(rewards, values, dones, last_value, gamma, lam)
     adv, ret = gae_cuda(_flatten_batch(rewards), _flatten_batch(values),
@@ -129,7 +133,11 @@ def gae(rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor,
 def discounted_returns(rewards: torch.Tensor, dones: torch.Tensor,
                        last_value: torch.Tensor, gamma: float = 0.99,
                        *, impl: Optional[str] = None) -> torch.Tensor:
-    """Discounted returns-to-go; see ``ref.discounted_returns_ref``."""
+    """Discounted returns-to-go; see ``ref.discounted_returns_ref``.
+    Float16 or bfloat16 rewards are cast up to ``last_value``'s dtype
+    first, as in ``gae``."""
+    rewards = rewards.to(torch.promote_types(rewards.dtype,
+                                             last_value.dtype))
     if not select.use_kernel(impl, rewards):
         return discounted_returns_ref(rewards, dones, last_value, gamma)
     ret = discounted_returns_cuda(_flatten_batch(rewards),

@@ -46,6 +46,9 @@ def init_mlp_net(generator: torch.Generator, sizes) -> nn.ModuleList:
 
 
 def mlp_apply(net: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    # a float16 or bfloat16 obs meets the float32 weights as JAX promotes
+    # it: cast up, exactly
+    x = x.to(torch.promote_types(x.dtype, net[0].weight.dtype))
     for i, lyr in enumerate(net):
         x = lyr(x)
         if i < len(net) - 1:

@@ -14,7 +14,7 @@ bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, NamedTuple, Sequence, Tuple
+from typing import Any, Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -27,8 +27,11 @@ class AdamState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
-    init: Callable[[Sequence[torch.Tensor]], AdamState]
-    update: Callable[..., Tuple[List[torch.Tensor], AdamState]]
+    """``init(params) -> state`` and ``update(grads, state, params) ->
+    (updates, state')`` (``adam``'s ``AdamState``, ``sgd``'s
+    ``SgdState``)."""
+    init: Callable[[Sequence[torch.Tensor]], Any]
+    update: Callable[..., Tuple[List[torch.Tensor], Any]]
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999,

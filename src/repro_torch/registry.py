@@ -2,11 +2,14 @@
 (port of ``repro/registry.py``).
 
 Only what is ported is registered: envs ``pendulum``, ``cartpole`` and
-``cheetah``; algos ``ppo``, ``trpo``, ``ddpg`` and ``sac``; backend
-``inline``; buffers ``fifo``, ``uniform`` and ``prioritized``; the model
-archs of ``repro_torch.configs`` (kind ``arch``). The built-in entries of
-each kind live with their implementations and are imported on first
-lookup.
+``cheetah``; algos ``ppo``, ``trpo``, ``ddpg`` and ``sac``; backends
+``inline``, ``threaded`` and ``process``; buffers ``fifo``, ``uniform`` and
+``prioritized``; the model archs of ``repro_torch.configs`` (kind
+``arch``: the LM archs and ``walle-mlp``); the RL kernel families ``gae``,
+``sum_tree``, ``replay_ring`` and ``env_step`` (kind ``kernel``, each
+resolving to its package under ``repro_torch.kernels``). The built-in
+entries of each kind live with their implementations and are imported on
+first lookup.
 Registering a duplicate name raises ``ValueError``; an unknown name raises
 ``KeyError`` listing the registered choices.
 """
@@ -21,6 +24,7 @@ _BUILTIN_MODULES = {
     "backend": "repro_torch.core.backends",
     "buffer": "repro_torch.data.buffers",
     "arch": "repro_torch.configs",
+    "kernel": "repro_torch.kernels",
 }
 
 _REGISTRIES: Dict[str, Dict[str, Callable[..., Any]]] = {}

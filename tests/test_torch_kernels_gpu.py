@@ -408,6 +408,95 @@ def test_cartpole_step_with_unaligned_reset_obs(cuda, B):
     assert int(got[3].sum()) >= B // 3
 
 
+HALF_DTYPES = [torch.float16, torch.bfloat16]
+
+
+def _float_bits(x):
+    """A float tensor's bits as an integer tensor of its width, so NaNs
+    compare by their bits."""
+    if not x.is_floating_point():
+        return x
+    return x.view({4: torch.int32, 2: torch.int16}[x.element_size()])
+
+
+def _assert_same_float_bits(got, want):
+    for g, w in zip((*got[0], *got[1:]), (*want[0], *want[1:])):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_float_bits(g), _float_bits(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ends", ["none", "all", "mixed"])
+@pytest.mark.parametrize("B", [1, 31, 33, 257, 4097])
+@pytest.mark.parametrize("name", ["pendulum", "cartpole", "cheetah"])
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+def test_env_step_kernels_store_half_precision_obs(cuda, dtype, name, B,
+                                                   ends):
+    """Obs and rewards stored in float16 or bfloat16 (the reset obs in
+    that dtype too): every leaf bit for bit against the plain version at
+    the same dtype, one launch a call, with no, every or a third of the
+    episodes ending."""
+    state, a, rs, ro = env_inputs(name, B, cuda)
+    state = _ends(name, state, ends)
+    params = dict(max_episode_steps=HORIZON, reward_scale=0.5, dtype=dtype,
+                  **PARAMS[name])
+    wrapper = env_ops.STEP_BATCH_CUDA[name]
+    before = wrapper.launches
+    got = wrapper(state, a, rs, ro.to(dtype), **params)
+    want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro.to(dtype),
+                                        **params)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert got[1].dtype == got[2].dtype == dtype
+    _assert_same_float_bits(got, want)
+    n_done = int(got[3].sum())
+    assert n_done == {"none": 0, "all": B}.get(ends, n_done)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pendulum", "cartpole", "cheetah"])
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+def test_half_precision_env_steps_pass_nan_and_unaligned_reset_obs(
+        cuda, dtype, name):
+    """NaN in every float input leaf of a few rows and a reset obs one
+    element past an aligned start, at float16 and bfloat16: bit for bit
+    against the plain version, NaNs by their bits."""
+    state, a, rs, ro = env_inputs(name, 1000, cuda)
+    ro = ro.to(dtype)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for leaf in (*state[:-1], a, *rs[:-1], ro):
+        leaf.view(-1)[torch.randperm(leaf.numel(), generator=gen,
+                                     device=cuda)[:60]] = float("nan")
+    ro = torch.cat([torch.zeros(1, dtype=dtype, device=cuda),
+                    ro.view(-1)])[1:].view(ro.shape)
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0, dtype=dtype,
+                  **PARAMS[name])
+    got = env_ops.STEP_BATCH_CUDA[name](state, a, rs, ro, **params)
+    want = env_ref.STEP_BATCH_REF[name](state, a, rs, ro, **params)
+    torch.cuda.synchronize()
+    _assert_same_float_bits(got, want)
+    assert bool(torch.isnan(got[1]).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["pendulum", "cartpole", "cheetah"])
+def test_env_step_kernels_refuse_another_obs_dtype(cuda, name):
+    """A float64 obs dtype, or a reset obs of another dtype than the one
+    asked for, raises ``ValueError`` before anything launches: no dtype
+    takes the plain version."""
+    state, a, rs, ro = env_inputs(name, 16, cuda)
+    wrapper = env_ops.STEP_BATCH_CUDA[name]
+    before = wrapper.launches
+    params = dict(max_episode_steps=HORIZON, reward_scale=1.0,
+                  **PARAMS[name])
+    with pytest.raises(ValueError, match="obs dtype"):
+        env_ops.env_step(name, state, a, rs, ro.double(), impl="cuda",
+                         dtype=torch.float64, **params)
+    with pytest.raises(ValueError, match="reset obs must be"):
+        wrapper(state, a, rs, ro, dtype=torch.bfloat16, **params)
+    assert wrapper.launches == before
+
+
 def _capture(fn):
     """``fn`` run once on a side stream (build, load), then captured in a
     CUDA graph; returns the graph and the captured call's outputs."""

@@ -155,7 +155,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
    overlap; sync PPO cheetah N=10 through the train CLI with
    ``--overlap``, inline and over 10 worker processes, bit for bit, with
    collect wall and exposed learn against the serial runs above, printed
-   as an ``{"overlap": ...}`` line;
+   as an ``{"overlap": ...}`` line. Then train -> checkpoint -> serve
+   (``serving``): PPO pendulum through the train CLI (10 × 16 × 125, 2
+   iterations) with ``--kernels cuda --ckpt-dir``, its pendulum-step and
+   GAE launches counted; ``load_policy`` on the card (params bit for bit
+   the run's); ``PolicyServer.from_checkpoint`` with 8 slots: a full batch,
+   a deadline-expired partial batch and requests one at a time, every
+   action bit for bit ``reference_act``'s; a hot-swap published from a
+   spawned process through ``ChannelSpec.to_json`` mid-traffic, every
+   action the bits of the version its completion reports, both versions
+   serving, none dropped; SAC and DDPG cheetah prioritized checkpoints (2
+   × 8 × 32, 2 iterations, their replay-kernel launches counted), each
+   served and checked the same way; ``serve_policy`` with
+   ``--swap-after``; then ``serve_policy`` traffic at 8 slots, a 5 ms
+   deadline, 4 clients and 512 requests, and at 64 slots, 64 clients and
+   4,096 requests: requests/s, p50 and p99 latency, dispatches and
+   occupancy, printed with the card's name and power limit as a
+   ``{"serving": ...}`` line; nothing left behind;
 5. reference: small PPO, SAC prioritized, TRPO cart-pole and DDPG
    prioritized pendulum runs with the kernels, and the same runs with the
    plain versions (``kernels="ref"``), must end with the same weights bit
@@ -2508,6 +2524,221 @@ def dtype_runs(counted, runs, check_logs, zero_counts):
     return out
 
 
+def publish_scaled(spec_json, scale):
+    """The hot-swap's learner stand-in, in a spawned process: attach to the
+    channel from its JSON handoff and publish every leaf scaled."""
+    from repro_torch.core.ipc import ChannelSpec, ParamsChannel
+    chan = ParamsChannel.attach(ChannelSpec.from_json(spec_json))
+    leaves, _ = chan.read()
+    chan.publish([x * np.float32(scale) for x in leaves])
+    chan.close()
+
+
+# the serving line's two traffic settings: slots, deadline ms, clients,
+# requests
+SERVE_SETTINGS = ((8, 5.0, 4, 512), (64, 5.0, 64, 4096))
+
+
+def serving_runs(cli, counted, runs, zero_counts, device):
+    """Train -> checkpoint -> serve on the card: PPO pendulum through the
+    train CLI at 10 × 16 × 125 (2 iterations) with ``--kernels cuda
+    --ckpt-dir``, then ``load_policy`` (params bit for bit the run's) and
+    ``PolicyServer.from_checkpoint`` (8 slots): a full batch, deadline
+    partial batches and one request at a time, each action bit for bit
+    ``reference_act``'s; a hot-swap published from a spawned process
+    through ``ChannelSpec.to_json`` mid-traffic (256 requests from 8
+    threads, a request every 2 ms until the publish lands, 256 more), each
+    action the bits of its version's reference, both versions serving,
+    none dropped; SAC and DDPG cheetah prioritized checkpoints (2 × 8 × 32, 2
+    iterations), each served and checked the same way; ``serve_policy``
+    with ``--swap-after``; then ``serve_policy`` at each of
+    ``SERVE_SETTINGS`` for requests/s, latency, dispatches and occupancy,
+    and the median host time of one idle ``reference_act`` at that width,
+    printed as a ``{"serving": ...}`` line. Nothing may be left behind."""
+    import concurrent.futures
+    import copy
+    import tempfile
+    import uuid
+    from repro_torch.core.ipc import ParamsChannel, param_leaves
+    from repro_torch.launch import serve_policy
+    from repro_torch.serve import PolicyServer, load_policy
+
+    def same(label, got, want):
+        assert np.array_equal(got, want), f"{label}: {got} != {want}"
+
+    def check_batching(label, ckpt):
+        """Full, partial and single dispatches against reference_act."""
+        with PolicyServer.from_checkpoint(ckpt, slots=8,
+                                          deadline_ms=2000.0) as server:
+            assert server.device.type == "cuda", server.device
+            obs = np.random.RandomState(0).randn(
+                24, server.env.obs_dim).astype(np.float32)
+            full = [server.submit(o) for o in obs[:8]]
+            for p in full:
+                same(f"{label} full", p.result(60.0),
+                     server.reference_act(p.obs, p.noise))
+            assert server.stats.dispatches == 1, server.stats.dispatches
+        with PolicyServer.from_checkpoint(ckpt, slots=8,
+                                          deadline_ms=20.0) as server:
+            partial = [server.submit(o) for o in obs[8:11]]
+            for p in partial:
+                same(f"{label} partial", p.result(60.0),
+                     server.reference_act(p.obs, p.noise))
+            snap = server.snapshot()
+            assert snap["dispatches"] == 1 and snap["wasted_slot_steps"] == 5
+            for o in obs[11:]:
+                p = server.submit(o)
+                same(f"{label} single", p.result(60.0),
+                     server.reference_act(p.obs, p.noise))
+            assert server.stats.dispatches == 1 + len(obs) - 11
+        log(f"serving {label}: full, partial and single dispatches bit for "
+            f"bit equal to reference_act")
+
+    def quiet(fn, *args):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(*args)
+
+    report = {"device": device}
+    with tempfile.TemporaryDirectory() as tmp:
+        n, per, h = MAIN_SAMPLERS
+        ppo_dir = os.path.join(tmp, "ppo")
+        label = "serving: ppo pendulum N=10 --ckpt-dir"
+        counted(label, lambda: cli([
+            "--env", "pendulum", "--algo", "ppo", "--num-samplers", str(n),
+            "--global-batch", str(n * per), "--horizon", str(h),
+            "--iterations", "2", "--kernels", "cuda", "--ckpt-dir",
+            ppo_dir]))
+        assert runs[label] == zero_counts(pendulum_step=2 * n * h,
+                                          gae=2), runs[label]
+        trained = cli.result.params
+        handle = load_policy(ppo_dir)
+        assert handle.step == 2 and handle.spec.algo == "ppo"
+        for a, b in zip(trained.parameters(), handle.params.parameters()):
+            assert b.is_cuda and torch.equal(a, b), "restored params differ"
+        check_batching("ppo pendulum", ppo_dir)
+
+        # the hot-swap: a spawned learner stand-in publishes mid-traffic
+        leaves = param_leaves(handle.params)
+        channel = ParamsChannel.create(
+            leaves, f"walle-{os.getpid()}-serve-{uuid.uuid4().hex[:6]}")
+        channel.publish(leaves)
+        scale = 1.5
+        v2 = copy.deepcopy(handle.params)
+        with torch.no_grad():
+            for p in v2.parameters():
+                p.mul_(scale)
+        obs = np.random.RandomState(1).randn(
+            512, handle.env.obs_dim).astype(np.float32)
+        try:
+            with PolicyServer(handle.env, handle.algo, handle.params,
+                              slots=8, deadline_ms=2.0, queue_cap=8192,
+                              params_channel=channel) as server:
+                proc = multiprocessing.get_context("spawn").Process(
+                    target=publish_scaled,
+                    args=(channel.spec.to_json(), scale))
+                with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                    pending = [f.result() for f in [
+                        pool.submit(server.submit, o) for o in obs[:256]]]
+                    proc.start()
+                    # traffic flows until the publish lands, then 256 more
+                    deadline = time.monotonic() + 60.0
+                    while (server.params_version < 2
+                           and time.monotonic() < deadline):
+                        pending.append(server.submit(
+                            obs[len(pending) % len(obs)]))
+                        time.sleep(0.002)
+                    assert server.params_version == 2, server.params_version
+                    pending += [f.result() for f in [
+                        pool.submit(server.submit, o) for o in obs[256:]]]
+                actions = [p.result(60.0) for p in pending]
+                proc.join(60.0)
+                assert proc.exitcode == 0, proc.exitcode
+                versions = [p.params_version for p in pending]
+                with PolicyServer(handle.env, handle.algo, handle.params,
+                                  slots=8) as ref1, \
+                        PolicyServer(handle.env, handle.algo, v2,
+                                     slots=8) as ref2:
+                    for p, a in zip(pending, actions):
+                        ref = ref1 if p.params_version == 1 else ref2
+                        same("hot-swap", a, ref.reference_act(p.obs, p.noise))
+            assert all(p.done() for p in pending)
+            assert versions.count(1) and versions.count(2), versions
+        finally:
+            channel.close(unlink=True)
+        report["hot_swap"] = {"requests": len(actions),
+                              "served_by_v1": versions.count(1),
+                              "served_by_v2": versions.count(2)}
+        log(f"serving hot-swap: {len(actions)} requests, "
+            f"{versions.count(1)} on version 1 and {versions.count(2)} on "
+            f"version 2, each bit for bit its version's reference")
+
+        # off-policy checkpoints, trained through the replay kernels
+        for algo in ("sac", "ddpg"):
+            d = os.path.join(tmp, algo)
+            label = f"serving: {algo} cheetah prioritized --ckpt-dir"
+            counted(label, lambda: cli([
+                "--env", "cheetah", "--algo", algo, "--buffer",
+                "prioritized", "--num-samplers", "2", "--global-batch",
+                "16", "--horizon", "32", "--iterations", "2",
+                "--replay-capacity", "4096", "--replay-batch", "64",
+                "--kernels", "cuda", "--ckpt-dir", d]))
+            assert runs[label] == zero_counts(
+                cheetah_step=2 * 2 * 32, ring_insert=2, ring_gather=2 * 4,
+                sumtree_find=2 * 4, sumtree_update=2 * (1 + 4)), runs[label]
+            trained = cli.result.params
+            restored = load_policy(d).params
+            for a, b in zip(trained.parameters(), restored.parameters()):
+                assert torch.equal(a, b), f"{algo}: restored params differ"
+            check_batching(f"{algo} cheetah", d)
+
+        snap = quiet(serve_policy.main, [
+            "--ckpt", ppo_dir, "--slots", "8", "--requests", "64",
+            "--clients", "4", "--swap-after", "16"])
+        assert snap["requests"] >= 64 and snap["params_version"] == 2, snap
+        log(f"serving serve_policy --swap-after 16: exit 0, version "
+            f"{snap['params_version']}")
+
+        report["settings"] = []
+        for slots, deadline_ms, clients, requests in SERVE_SETTINGS:
+            snap = quiet(serve_policy.main, [
+                "--ckpt", ppo_dir, "--slots", str(slots), "--deadline-ms",
+                str(deadline_ms), "--clients", str(clients), "--requests",
+                str(requests)])
+            assert snap["requests"] == requests, snap
+            # one dispatch at this width with no traffic: the host time of
+            # reference_act on an idle server (dispatcher not started)
+            server = PolicyServer.from_checkpoint(ppo_dir, slots=slots)
+            try:
+                obs0 = np.zeros(server.env.obs_dim, np.float32)
+                noise0 = np.zeros(server.env.act_dim, np.float32)
+                times = []
+                for i in range(55):
+                    t0 = time.perf_counter()
+                    server.reference_act(obs0, noise0)
+                    if i >= 5:
+                        times.append(time.perf_counter() - t0)
+            finally:
+                server.close()
+            entry = {"slots": slots, "deadline_ms": deadline_ms,
+                     "clients": clients, "requests": requests,
+                     "requests_per_sec": snap["requests_per_sec"],
+                     "latency_ms_p50": snap["latency_ms"]["p50"],
+                     "latency_ms_p99": snap["latency_ms"]["p99"],
+                     "queue_wait_ms_p50": snap["queue_wait_ms"]["p50"],
+                     "dispatches": snap["dispatches"],
+                     "batch_occupancy": snap["batch_occupancy"],
+                     "wall_seconds": snap["wall_seconds"],
+                     "dispatch_ms": float(np.median(times)) * 1e3}
+            report["settings"].append(entry)
+            log(f"serving ppo pendulum {entry}")
+    report["launches"] = {k: {n: c for n, c in v.items() if c}
+                          for k, v in runs.items()
+                          if k.startswith("serving:")}
+    check_no_leftovers("serving")
+    log(json.dumps({"serving": report}))
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2887,6 +3118,11 @@ def main(argv=None) -> int:
 
     phase_done("overlap")
 
+    # slice 15: train -> checkpoint -> serve
+    serving_report = serving_runs(cli, counted, runs, zero_counts, smi)
+
+    phase_done("serving")
+
     # slice 4: LM serving, hymba-1.5b and falcon-mamba-7b
     run_a = lm_serve_runs(counted, runs, zero_counts)
 
@@ -2957,6 +3193,7 @@ def main(argv=None) -> int:
     log(json.dumps({"actor_plane": actor_report}))
     log(json.dumps({"fused": fused_report}))
     log(json.dumps({"overlap": overlap_report}))
+    log(json.dumps({"serving": serving_report}))
     log(json.dumps({"launches_by_run": runs}))
     phase_done("timings")
     log(json.dumps({"phase_seconds": seconds}))

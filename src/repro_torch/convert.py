@@ -14,6 +14,9 @@ mapped:
   list of layers) onto ``DDPGParams``, with its two Adam states (actor,
   critic).
 
+``PARAM_TREES`` names the two directions for each algorithm; the
+checkpoints of both packages store the reference's tree.
+
 The sequence model's ``init_params`` tree (``embed``, the stacked
 ``layers``, ``final_norm``, ``lm_head``, ``value_head``, ``meta_tokens``)
 maps onto ``transformer.LM`` by name: its ``(in, out)`` matrices are kept
@@ -282,3 +285,16 @@ def lm_env_from_jax(vocab_size: int, episode_len: int, reward_table,
     return LMEnv(vocab_size=vocab_size, episode_len=episode_len,
                  reward_table=table.to(device),
                  repeat_penalty=repeat_penalty)
+
+
+# ----------------------------------------------------------- checkpoints
+# each RL algorithm's params as the reference's params pytree and back:
+# what a checkpoint stores (``checkpoint.save``) and restores
+# (``serve.load_policy``), so a checkpoint written by either package
+# restores in the other
+PARAM_TREES: Dict[str, Tuple[Callable, Callable]] = {
+    "ppo": (params_to_jax, params_from_jax),
+    "trpo": (params_to_jax, params_from_jax),
+    "sac": (sac_params_to_jax, sac_params_from_jax),
+    "ddpg": (ddpg_params_to_jax, ddpg_params_from_jax),
+}

@@ -50,6 +50,7 @@ from __future__ import annotations
 import atexit
 import collections
 import dataclasses
+import json
 import os
 import queue as _queue
 import signal
@@ -328,9 +329,29 @@ class Heartbeat:
 
 @dataclasses.dataclass(frozen=True)
 class ChannelSpec:
-    """Attach info for a ``ParamsChannel`` (picklable)."""
+    """Attach info for a ``ParamsChannel`` (picklable).
+
+    Also JSON round-trippable (``to_json``/``from_json``, the reference's
+    schema ``{"prefix", "leaves": [{"key", "shape", "dtype"}]}``): a
+    serving replica (``repro_torch.serve``) may start apart from the
+    learner, which drops the spec as a handoff file that the replica
+    attaches from (``launch/serve_policy.py --channel-spec``).
+    """
     prefix: str
     leaves: Tuple[LeafSpec, ...]
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "prefix": self.prefix,
+            "leaves": [dataclasses.asdict(l) for l in self.leaves],
+        })
+
+    @classmethod
+    def from_json(cls, text: str) -> "ChannelSpec":
+        d = json.loads(text)
+        return cls(prefix=d["prefix"], leaves=tuple(
+            LeafSpec(key=l["key"], shape=tuple(l["shape"]),
+                     dtype=l["dtype"]) for l in d["leaves"]))
 
 
 class ParamsChannel:
@@ -436,17 +457,19 @@ def param_leaves(params) -> List[np.ndarray]:
     return [p.detach().cpu().numpy() for p in params.parameters()]
 
 
-def _check_leaves(params, chan_spec: ChannelSpec, worker_id: int) -> None:
-    """Raise unless the channel carries exactly ``params``' parameters
-    (count and shapes)."""
+def _check_leaves(params, chan_spec: ChannelSpec, what: str,
+                  exc: type = RuntimeError) -> None:
+    """Raise ``exc`` unless the channel carries exactly ``params``'
+    parameters (count and shapes); ``what`` names the holder of
+    ``params``."""
     shapes = [tuple(p.shape) for p in params.parameters()]
     carried = [tuple(leaf.shape) for leaf in chan_spec.leaves]
     if shapes != carried:
-        raise RuntimeError(
-            f"worker {worker_id}: rebuilt params have {len(shapes)} "
-            f"tensors of shapes {shapes}, the channel carries "
-            f"{len(carried)} of shapes {carried}: the WorkerSpec and the "
-            f"learner's params disagree")
+        raise exc(
+            f"{what} has {len(shapes)} parameters of shapes {shapes}, the "
+            f"channel carries {len(carried)} leaves of shapes {carried}: "
+            f"they disagree (a channel carries the port's parameters in "
+            f"module order)")
 
 
 def _load_leaves(params, leaves: Sequence[np.ndarray]) -> None:
@@ -521,7 +544,8 @@ def _worker_main(spec_dict: Dict[str, Any], ring_spec: RingSpec,
         ring = ShmRing.attach(ring_spec)
         chan = ParamsChannel.attach(chan_spec)
         hb = Heartbeat(hb_name)
-        _check_leaves(params, chan_spec, worker_id)
+        _check_leaves(params, chan_spec,
+                      f"worker {worker_id}: the rebuilt params (WorkerSpec)")
         hb.beat(worker_id)
         res_q.put(("ready", worker_id, time.monotonic()))
 

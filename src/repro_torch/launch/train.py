@@ -26,11 +26,19 @@ Usage:
       --horizon 125 --iterations 40 [--chunk 10] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
       --backend {inline,threaded,process,fused} --overlap [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --env pendulum \
+      --algo ppo --iterations 5 --ckpt-dir /tmp/ckpt [--device cpu]
 
 ``--backend fused`` is the fused runtime: one carry of ``--global-batch``
 envs (or ``--env-batch``), each collect -> learn iteration one CUDA-graph
 replay on the card, ``--chunk`` iterations between host syncs (default:
 all of them).
+
+``--ckpt-dir D`` saves the run's params at step ``--iterations`` (only the
+params, never the optimizer state) with ``{"mode": "rl", "spec": ...}`` as
+metadata, in the format both packages read: ``python -m
+repro_torch.launch.serve_policy --ckpt D`` serves it, and so does the
+reference's ``repro.launch.serve_policy``.
 
 ``--overlap`` (sync and fused runtimes): after two serial iterations,
 iteration k+1's collect runs while iteration k's learn does, with the
@@ -48,7 +56,7 @@ from __future__ import annotations
 import argparse
 import json
 
-from repro_torch import experiment
+from repro_torch import checkpoint, convert, experiment
 from repro_torch.algos.staleness import MODES as STALENESS_MODES
 from repro_torch.experiment import ExperimentSpec, Schedule
 from repro_torch.kernels.select import ALIASES, MODES
@@ -107,9 +115,15 @@ def spec_from_args(args) -> ExperimentSpec:
 
 
 def run_rl(args) -> experiment.ExperimentResult:
-    result = experiment.run(spec_from_args(args), device=args.device)
+    spec = spec_from_args(args)
+    result = experiment.run(spec, device=args.device)
     for log in result.logs:
         print(json.dumps(log.as_dict()), flush=True)
+    if args.ckpt_dir:
+        to_tree, _ = convert.PARAM_TREES[spec.algo]
+        checkpoint.save(args.ckpt_dir, args.iterations,
+                        to_tree(result.params),
+                        metadata={"mode": "rl", "spec": spec.to_dict()})
     return result
 
 
@@ -195,6 +209,11 @@ def main(argv=None) -> experiment.ExperimentResult:
                     help="per-version decay factor (default 0.9)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="after the run, save its params at step "
+                         "--iterations in the reference's checkpoint "
+                         "format, with the spec in the metadata (what "
+                         "repro_torch.launch.serve_policy --ckpt serves)")
     args = ap.parse_args(argv)
     if args.mode != "rl":
         raise SystemExit(f"--mode {args.mode} is not ported to repro_torch "

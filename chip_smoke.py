@@ -91,6 +91,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
    cut to 8 of 64 layers (batch 4, prompt 16, 16 tokens, 2 requests);
    tokens in [0, vocab), logits finite, and per prefill one scan and one
    flash launch per layer, per decode step one decode launch per layer.
+   Then LM training (``lm_train``), on the model's plain paths (the
+   kernels have no backward): (a) ``--mode lm`` at hymba-1.5b's full
+   width, bfloat16 with bfloat16 Adam moments, batch 2 × 64 tokens (+128
+   meta tokens), 3 steps: losses and grad norms finite, the params moved,
+   no kernel launched; seconds a step, peak MiB and the parameter count;
+   (b) ``examples/llm_rollout_torch.py``'s loop at full width (2 samplers
+   × 8 sequences × prompt 8 + 24 tokens, 2 updates): the rollout's
+   prefill and decode launch the flash, decode and scan kernels (one a
+   layer per prefill, one decode a layer per step) and its GAE the GAE
+   kernel, counted exactly; a fresh rollout's behaviour logp against the
+   plain decode path teacher-forced with its tokens and against the
+   training forward over ``[prompt, tokens[:, :-1]]``, in bfloat16
+   (reported) and on a float32 copy of the weights (within
+   ``LM_LOGP_F32_TOL``); collect against learn seconds; (c) two ``--mode
+   lm`` steps of the dense, ssm, MoE, M-RoPE + vision and audio reduced
+   archs, each with ``--ckpt-dir`` read back by the port bit for bit; (d)
+   at full width, the grads of remat ``none`` and ``full`` within
+   ``LM_REMAT_REL_TOL``, and each of the five modes' peak MiB; (e) 30
+   updates of the example at hymba-1.5b-reduced, the mean token reward of
+   the first and last five logged (no threshold); an ``{"lm_train": ...}``
+   line.
    Before the LM runs, the actor plane through the train CLI, each run
    with its workers on the card: PPO on cheetah over 10 worker processes
    in lock-step (``--backend process``, the paper's 10 × 16 × 125, 3
@@ -2739,6 +2760,256 @@ def serving_runs(cli, counted, runs, zero_counts, device):
     return report
 
 
+# slice 16: LM training
+LM_TRAIN_ARCH = "hymba-1.5b"
+LM_TRAIN_ARGS = ["--batch", "2", "--seq-len", "64"]
+# the example's loop: samplers, sequences each, prompt, tokens
+LM_LOOP = dict(samplers=2, batch=8, prompt_len=8, gen_len=24)
+LM_FAMILIES = ("h2o-danube-3-4b-reduced", "falcon-mamba-7b-reduced",
+               "mixtral-8x7b-reduced", "qwen2-vl-7b-reduced",
+               "musicgen-medium-reduced")
+LM_REMATS = ("none", "full", "scan2", "dots", "scan2_dots")
+# the rollout's float32 behaviour logp against the plain paths at full
+# depth: LM_F32_TOL bounds float32 logits through 4 layers; hymba-1.5b has
+# 8 times the layers, and a logp is a logit less a log-sum-exp of them
+LM_LOGP_F32_TOL = 2 * (32 // 4) * LM_F32_TOL
+# remat "none" against "full", bfloat16 grads: both run the same ops, but
+# the card's backward sums (the embedding's scatter-add, split-K matmuls)
+# may run in another order, and each grad is rounded to bfloat16 (2^-8
+# relative); so each leaf's max |difference| within 2^-5 of its max |grad|
+LM_REMAT_REL_TOL = 2.0 ** -5
+
+
+def lm_logps(logits, tokens):
+    """Each step's log-prob of ``tokens[:, t]`` from ``logits[t]``."""
+    return torch.stack([torch.log_softmax(z.float(), -1).gather(
+        -1, tokens[:, t:t + 1])[:, 0] for t, z in
+        enumerate(logits[:tokens.shape[1]])], 1)
+
+
+def plain_rollout_logps(cfg, params, prompt, tokens):
+    """``tokens``' behaviour logp by the plain paths: the decode path
+    teacher-forced with them, and the training ``forward`` +
+    ``token_logp_entropy`` over the whole context ``[prompt, tokens[:,
+    :-1]]``."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer
+    T = tokens.shape[1]
+    prev = kernels.set_kernel_mode("ref")
+    try:
+        _, logits, _ = teacher_forced(cfg, params, prompt, T, tokens=tokens)
+        with torch.no_grad():
+            context = torch.cat([prompt, tokens[:, :-1]], dim=1)
+            h, _ = transformer.forward(cfg, params, context, remat="none")
+            fwd, _ = transformer.token_logp_entropy(cfg, params, h[:, -T:],
+                                                    tokens)
+    finally:
+        kernels.set_kernel_mode(prev)
+    return lm_logps(logits, tokens), fwd
+
+
+def lm_train_runs(counted, runs, zero_counts, smi):
+    """Phase 4 for the LM training slice (``lm_train``): (a) ``--mode lm``
+    at hymba-1.5b's full width, bfloat16 with bfloat16 moments; (b) the
+    example's RL loop (``examples/llm_rollout_torch.py``) at full width,
+    its rollout's logp against the plain paths; (c) two ``--mode lm``
+    steps of each reduced family with a checkpoint written and read back;
+    (d) remat "none" against "full" at full width, and each mode's peak
+    memory; (e) 30 updates of the example at hymba-1.5b-reduced (the mean
+    token reward logged, no threshold). Returns the ``lm_train`` report."""
+    import copy
+    import runpy
+    import tempfile
+
+    from repro_torch import checkpoint, convert, kernels
+    from repro_torch.algos.ppo import PPOConfig, lm_ppo_loss
+    from repro_torch.configs import get_config
+    from repro_torch.core.sampler import make_lm_rollout
+    from repro_torch.envs import lm_env
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+
+    report = {"device": smi}
+    cfg = get_config(LM_TRAIN_ARCH)
+    L = cfg.n_layers
+
+    def resident_mib():
+        """MiB this process holds on the card before a measurement (what
+        earlier phases keep alive counts in every peak after it)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 2 ** 20
+
+    def quiet(fn, *args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn(*args)
+        for line in buf.getvalue().splitlines():
+            log(f"  {line}")
+        return out
+
+    # (a) full width: three steps in bfloat16, bfloat16 moments
+    label = f"lm train {LM_TRAIN_ARCH} B=2 S=64 x3"
+    resident = resident_mib()
+    run = counted(label, lambda: quiet(train.main, [
+        "--mode", "lm", "--arch", LM_TRAIN_ARCH, "--steps", "3"]
+        + LM_TRAIN_ARGS))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    assert runs[label] == zero_counts(), runs[label]   # plain paths only
+    assert all(math.isfinite(v) for m in run.metrics for v in m.values()), (
+        run.metrics)
+    # every weight in bfloat16 but the scan's A_log and D (float32 in every
+    # dtype, as the reference's), every moment in bfloat16
+    assert {n.rsplit(".", 1)[-1] for n, p in run.params.named_parameters()
+            if p.dtype != torch.bfloat16} == {"A_log", "D"}
+    assert all(m.dtype == torch.bfloat16
+               for m in run.opt_state.mu + run.opt_state.nu)
+    fresh = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0))
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(run.params.parameters(), fresh.parameters()))
+    n_params = sum(p.numel() for p in run.params.parameters())
+    n_leaves = sum(1 for _ in run.params.parameters())
+    # the config's analytic count leaves out the value head (d + 1)
+    assert changed > 0 and n_params == cfg.param_count() + cfg.d_model + 1, (
+        changed, n_params)
+    report["a_full_width"] = {
+        "arch": LM_TRAIN_ARCH, "batch": 2, "seq_len": 64,
+        "tokens_per_row": 64 + cfg.n_meta_tokens, "params": n_params,
+        "leaves_changed": changed, "leaves": n_leaves,
+        "loss": [m["loss"] for m in run.metrics],
+        "grad_norm": [m["grad_norm"] for m in run.metrics],
+        "s_per_step": run.seconds, "s_per_step_2_3": run.seconds[1:],
+        "peak_mib": peak, "resident_before_mib": resident,
+        "peak_above_resident_mib": peak - resident}
+    log(f"lm train (a): {json.dumps(report['a_full_width'])}")
+    del run, fresh
+    torch.cuda.empty_cache()
+
+    # (b) the LM RL loop at full width, through the kernels
+    example = runpy.run_path(str(ROOT / "examples" / "llm_rollout_torch.py"),
+                             run_name="llm_rollout_torch")["main"]
+    loop_args = [f"--{k.replace('_', '-')}={v}" for k, v in LM_LOOP.items()]
+    label = f"lm rl loop {LM_TRAIN_ARCH} 2 x 8 x (8 + 24) x2"
+    resident = resident_mib()
+    _, params, history = counted(label, lambda: quiet(
+        example, ["--arch", LM_TRAIN_ARCH, "--updates", "2"] + loop_args))
+    n, b, gen = LM_LOOP["samplers"], LM_LOOP["batch"], LM_LOOP["gen_len"]
+    assert runs[label] == zero_counts(
+        selective_scan=2 * n * L, flash_attention=2 * n * L,
+        decode_attention=2 * n * gen * L, gae=2), runs[label]
+    assert all(math.isfinite(v) for h in history for v in h.values())
+    gen_ = torch.Generator(device="cuda").manual_seed(21)
+    env = lm_env.make(cfg.vocab_size, episode_len=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (b, LM_LOOP["prompt_len"]),
+                           generator=gen_, device="cuda")
+    # bfloat16, the loop's own weights: reported, not bounded
+    traj = make_lm_rollout(cfg, env, gen)(params, prompt, generator=gen_)
+    dec, fwd = plain_rollout_logps(cfg, params, prompt, traj["tokens"])
+    bf16 = {"max_abs_dlogp_vs_decode": max_err(traj["logp"], dec),
+            "max_abs_dlogp_vs_forward": max_err(traj["logp"], fwd)}
+    # float32: the same weights widened, bounded
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = transformer.LM(cfg32, device="cuda")
+    with torch.no_grad():
+        for a, w in zip(params32.parameters(), params.parameters()):
+            a.copy_(w)
+    del params
+    torch.cuda.empty_cache()
+    traj = make_lm_rollout(cfg32, env, gen)(params32, prompt,
+                                            generator=gen_)
+    dec, fwd = plain_rollout_logps(cfg32, params32, prompt, traj["tokens"])
+    f32 = {"max_abs_dlogp_vs_decode": max_err(traj["logp"], dec),
+           "max_abs_dlogp_vs_forward": max_err(traj["logp"], fwd),
+           "bound": LM_LOGP_F32_TOL}
+    report["b_rl_loop"] = {
+        "updates": history, "bf16": bf16, "f32": f32,
+        "collect_s": [h["collect_s"] for h in history],
+        "learn_s": [h["learn_s"] for h in history],
+        "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "resident_before_mib": resident,
+        "launches": {k: v for k, v in runs[label].items() if v}}
+    log(f"lm train (b): {json.dumps(report['b_rl_loop'])}")
+    assert max(f32["max_abs_dlogp_vs_decode"],
+               f32["max_abs_dlogp_vs_forward"]) <= LM_LOGP_F32_TOL, f32
+    del params32, traj
+    torch.cuda.empty_cache()
+
+    # (c) every family: two steps, a checkpoint written and read back
+    fams = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch in LM_FAMILIES:
+            label = f"lm train {arch} x2 --ckpt-dir"
+            d = os.path.join(tmp, arch)
+            run = counted(label, lambda: quiet(train.main, [
+                "--mode", "lm", "--arch", arch, "--steps", "2",
+                "--ckpt-dir", d]))
+            assert runs[label] == zero_counts(), runs[label]
+            assert all(math.isfinite(v) for m in run.metrics
+                       for v in m.values()), (arch, run.metrics)
+            back = convert.lm_params_from_jax(run.cfg, checkpoint.restore(
+                d, convert.lm_params_to_jax(run.params)), device="cuda")
+            assert all(torch.equal(a, w) for a, w in zip(
+                back.parameters(), run.params.parameters())), arch
+            meta = checkpoint.load_metadata(d)
+            assert meta["mode"] == "lm" and meta["arch"] == arch, meta
+            fams[arch] = {"loss": [m["loss"] for m in run.metrics],
+                          "aux": [m["aux"] for m in run.metrics],
+                          "s_per_step": run.seconds}
+    report["c_families"] = fams
+    log(f"lm train (c): {json.dumps(fams)}")
+
+    # (d) remat at full width: grads of "none" and "full", peak per mode
+    base = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(5))
+    batch = train.lm_batch(cfg, 2, 64,
+                           torch.Generator(device="cuda").manual_seed(6))
+    plist = list(base.parameters())
+    grads, peaks, secs = {}, {}, {}
+    for remat in LM_REMATS:
+        # "none"'s grads stay alive through the later modes' runs
+        resident = resident_mib()
+        t0 = time.perf_counter()
+        loss, _ = lm_ppo_loss(cfg, base, batch, PPOConfig(), remat=remat)
+        g = torch.autograd.grad(loss, plist)
+        torch.cuda.synchronize()
+        secs[remat] = time.perf_counter() - t0
+        peaks[remat] = {"peak": torch.cuda.max_memory_allocated() / 2 ** 20,
+                        "resident_before": resident}
+        if remat in ("none", "full"):
+            grads[remat] = g
+        del loss, g
+    worst, identical = 0.0, 0
+    for a, w in zip(grads["none"], grads["full"]):
+        scale = float(a.float().abs().max())
+        diff = float((a.float() - w.float()).abs().max())
+        identical += torch.equal(a, w)
+        worst = max(worst, diff / scale if scale else diff)
+    report["d_remat"] = {"peak_mib": peaks, "s_fwd_bwd": secs,
+                         "none_vs_full_max_rel_diff": worst,
+                         "leaves_bit_identical": identical,
+                         "leaves": len(plist), "bound": LM_REMAT_REL_TOL}
+    log(f"lm train (d): {json.dumps(report['d_remat'])}")
+    assert worst <= LM_REMAT_REL_TOL, worst
+    del grads, base, plist, batch
+    torch.cuda.empty_cache()
+
+    # (e) a learning observation at hymba-1.5b-reduced: no threshold
+    label = "lm rl loop hymba-1.5b-reduced x30"
+    _, _, history = counted(label, lambda: quiet(
+        example, ["--arch", "hymba-1.5b-reduced", "--updates", "30"]
+        + loop_args))
+    rew = [h["mean_token_reward"] for h in history]
+    assert all(math.isfinite(r) for r in rew)
+    report["e_learning"] = {
+        "first5_mean": sum(rew[:5]) / 5, "last5_mean": sum(rew[-5:]) / 5,
+        "rewards": rew,
+        "launches": {k: v for k, v in runs[label].items() if v}}
+    log(f"lm train (e): {json.dumps(report['e_learning'])}")
+    return report
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -3128,6 +3399,11 @@ def main(argv=None) -> int:
 
     phase_done("lm serving")
 
+    # slice 16: LM training
+    lm_train_report = lm_train_runs(counted, runs, zero_counts, smi)
+
+    phase_done("lm train")
+
     # 5. reference: kernels vs plain versions end to end on small runs
     def cuda_vs_ref(label, spec, plane=lambda res: []):
         """Run ``spec`` with the kernels and with the plain versions; the
@@ -3194,6 +3470,7 @@ def main(argv=None) -> int:
     log(json.dumps({"fused": fused_report}))
     log(json.dumps({"overlap": overlap_report}))
     log(json.dumps({"serving": serving_report}))
+    log(json.dumps({"lm_train": lm_train_report}))
     log(json.dumps({"launches_by_run": runs}))
     phase_done("timings")
     log(json.dumps({"phase_seconds": seconds}))

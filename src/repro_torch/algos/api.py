@@ -212,11 +212,6 @@ class PPOAlgorithm(GaussianMLPAlgorithm):
     supports_staleness = True
 
     def __init__(self, lr: float = 3e-4, hidden: int = 64, **cfg_kwargs):
-        if "aux_coef" in cfg_kwargs:
-            raise NotImplementedError(
-                "aux_coef (the MoE router load-balance weight of the LM "
-                "policy's PPO loss) is not ported to repro_torch yet; see "
-                "ROADMAP.md")
         self.cfg = PPOConfig(lr=lr, **cfg_kwargs)
         self.hidden = hidden
         self._opt = adam(self.cfg.lr)

@@ -1,11 +1,13 @@
-"""Proximal Policy Optimization on the Gaussian-MLP policy (port of the MLP
-half of ``repro/algos/ppo.py``).
+"""Proximal Policy Optimization (port of ``repro/algos/ppo.py``): on the
+Gaussian-MLP policy, and token-level on a sequence-model policy.
 
-The learner runs GAE, normalises advantages, then ``epochs`` passes of
+The MLP learner runs GAE, normalises advantages, then ``epochs`` passes of
 ``minibatches`` clipped-surrogate steps over contiguous slices of the
 flattened batch (no permutation, as in the reference), so it is
-deterministic given the trajectory. Gradients come from autograd; clipping
-and Adam are the hand-written ports in ``optim``.
+deterministic given the trajectory. The LM learner (``lm_ppo_loss``,
+``make_lm_train_step``) takes one step on a batch of token positions,
+through ``models.transformer.forward`` on its plain paths. Gradients come
+from autograd; clipping and Adam are the hand-written ports in ``optim``.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.algos import gae as gae_mod
 from repro_torch.algos import staleness as staleness_mod
+from repro_torch.models import transformer
 from repro_torch.optim import apply_updates, clip_by_global_norm
 
 
@@ -30,6 +33,7 @@ class PPOConfig:
     epochs: int = 4
     minibatches: int = 4
     max_grad_norm: float = 0.5
+    aux_coef: float = 0.01          # MoE router load-balance weight
 
 
 def clipped_surrogate(logp, behavior_logp, adv, clip_eps) -> torch.Tensor:
@@ -129,3 +133,58 @@ def make_mlp_learner(optimizer, cfg: PPOConfig, staleness=None):
         return policy, opt_state, mean_metrics(metrics)
 
     return learn
+
+
+# ======================================================== LM (token) PPO
+def lm_ppo_loss(model_cfg, params, batch: Dict[str, torch.Tensor],
+                cfg: PPOConfig, *, impl: str = "reference",
+                remat: str = "full"):
+    """Token-level PPO loss for a sequence-model policy (``transformer.LM``
+    params); returns ``(loss, metrics)`` with detached metrics.
+
+    batch: tokens (B,S) int — the input context; targets (B,S) — the
+    actions (next tokens); behavior_logp, advantages, returns, mask (B,S)
+    f32; optional extra_embeds and positions. The hidden states of the
+    prefix positions (meta tokens, frontend embeds) are dropped."""
+    h, aux = transformer.forward(
+        model_cfg, params, batch["tokens"],
+        extra_embeds=batch.get("extra_embeds"),
+        positions=batch.get("positions"), impl=impl, remat=remat)
+    S = batch["targets"].shape[1]
+    h = h[:, -S:]                                   # drop prefix positions
+    logp, ent = transformer.token_logp_entropy(model_cfg, params, h,
+                                               batch["targets"])
+    v = transformer.value(model_cfg, params, h)
+    mask = batch["mask"]
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    pg = torch.sum(clipped_surrogate(logp, batch["behavior_logp"],
+                                     batch["advantages"], cfg.clip_eps)
+                   * mask) / denom
+    v_loss = 0.5 * torch.sum((v - batch["returns"]) ** 2 * mask) / denom
+    ent_mean = torch.sum(ent * mask) / denom
+    loss = (pg + cfg.value_coef * v_loss - cfg.entropy_coef * ent_mean
+            + cfg.aux_coef * aux)
+    metrics = {"loss": loss, "pg_loss": pg, "v_loss": v_loss,
+               "entropy": ent_mean, "aux": aux}
+    return loss, {k: m.detach() for k, m in metrics.items()}
+
+
+def make_lm_train_step(model_cfg, optimizer, cfg: PPOConfig,
+                       impl: str = "reference", remat: str = "full"):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``: the
+    loss, its gradients, global-norm clipping, then ``optimizer``; the
+    params are updated in place. ``metrics["grad_norm"]`` is the
+    pre-clip norm."""
+
+    def train_step(params, opt_state, batch):
+        plist = list(params.parameters())
+        loss, metrics = lm_ppo_loss(model_cfg, params, batch, cfg,
+                                    impl=impl, remat=remat)
+        grads = torch.autograd.grad(loss, plist)
+        grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
+        updates, opt_state = optimizer.update(grads, opt_state, plist)
+        apply_updates(plist, updates)
+        metrics["grad_norm"] = gnorm
+        return params, opt_state, metrics
+
+    return train_step

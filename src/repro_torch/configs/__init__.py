@@ -4,9 +4,8 @@ of ``repro/configs/__init__.py``).
 The configs are the port's own copies of the reference's. Arch names live
 in the port's registry under the kind ``"arch"``; each entry is a lazy
 loader, so importing this package does not import every config module. The
-model of the port runs the ``dense``, ``ssm`` and ``hybrid`` families; the
-MoE, audio and vision-language configs are listed so that their names
-resolve, and ``models.transformer`` raises for them. ``walle-mlp`` is the
+model of the port (``models.transformer``) runs every family of them.
+``walle-mlp`` is the
 paper's own Gaussian-MLP policy (``models/mlp_policy.py``); the LM archs are
 ``ASSIGNED_ARCHS``.
 """

@@ -42,8 +42,17 @@ allocator's peak reserve and its kernel launch counts so far
 sends them once more as it stops, and before an injected death.
 
 Memory ordering: the seqlock headers are consistency checks; the ordering
-producers rely on is the command/result queue handshake (a pipe write and
-read is a full barrier).
+producers rely on is the command/result handshake (a pipe write and read
+is a full barrier).
+
+Each worker incarnation reports on a pipe of its own (the reading end
+stays in the pool, the writing end goes to that process alone). A shared
+``multiprocessing.Queue`` would serialise the workers' writes under one
+cross-process lock, and a worker killed while its feeder thread held that
+lock (a SIGKILL just after a report) would leave every other worker's
+reports blocked for good, the supervisor waiting on live workers until the
+sweep timed out. A pipe has no lock: a worker's death closes its writing
+end, so the pool reads what it sent and then its end of file.
 """
 from __future__ import annotations
 
@@ -58,7 +67,7 @@ import sys
 import time
 import traceback
 import uuid
-from multiprocessing import shared_memory
+from multiprocessing import connection, shared_memory
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -485,7 +494,7 @@ def _worker_main(spec_dict: Dict[str, Any], ring_spec: RingSpec,
                  chan_spec: ChannelSpec, hb_name: str, worker_id: int,
                  incarnation: int, slot_base: int, num_slots: int,
                  fault_plan_dict: Optional[Dict[str, Any]], cmd_q,
-                 res_q) -> None:
+                 res_conn) -> None:
     """Entry point of one rollout worker process.
 
     Sets what ``experiment.build`` sets in the learner (TF32 off; on the
@@ -509,8 +518,8 @@ def _worker_main(spec_dict: Dict[str, Any], ring_spec: RingSpec,
     device, allocator peak reserve (MiB; 0 on the CPU) and kernel launch
     counts so far. ("counts", id, info) repeats ``info`` as the worker
     stops (a rollout it finished but never wrote still launched its
-    kernels) and before an injected death, which flushes the result queue
-    first.
+    kernels) and before an injected death. Reports go on ``res_conn``, this
+    incarnation's own pipe; a send returns once the report is in the pipe.
 
     ``incarnation`` counts this worker id's spawns; it keys the fault
     plan's stream and is otherwise inert. Any exception is reported as
@@ -547,7 +556,7 @@ def _worker_main(spec_dict: Dict[str, Any], ring_spec: RingSpec,
         _check_leaves(params, chan_spec,
                       f"worker {worker_id}: the rebuilt params (WorkerSpec)")
         hb.beat(worker_id)
-        res_q.put(("ready", worker_id, time.monotonic()))
+        res_conn.send(("ready", worker_id, time.monotonic()))
 
         def info():
             reserved = (torch.cuda.max_memory_reserved(device)
@@ -558,9 +567,7 @@ def _worker_main(spec_dict: Dict[str, Any], ring_spec: RingSpec,
 
         def die():
             # what this incarnation launched reaches the parent first
-            res_q.put(("counts", worker_id, info()))
-            res_q.close()
-            res_q.join_thread()
+            res_conn.send(("counts", worker_id, info()))
             os.kill(os.getpid(), signal.SIGKILL)
 
         last_version = -1
@@ -623,16 +630,16 @@ def _worker_main(spec_dict: Dict[str, Any], ring_spec: RingSpec,
             seq = ring.write(slot, traj_np, worker_id=worker_id,
                              policy_version=last_version,
                              collect_seconds=dt, loop_seconds=loop_dt)
-            res_q.put(("traj", worker_id, slot, seq, last_version, dt,
+            res_conn.send(("traj", worker_id, slot, seq, last_version, dt,
                        time.perf_counter() - t_loop0, info()))
             counter += 1
-        res_q.put(("counts", worker_id, info()))
+        res_conn.send(("counts", worker_id, info()))
         ring.close()
         chan.close()
         hb.close()
     except Exception:
         try:
-            res_q.put(("error", worker_id, traceback.format_exc()))
+            res_conn.send(("error", worker_id, traceback.format_exc()))
         except Exception:
             pass
 
@@ -710,7 +717,9 @@ class ProcessWorkerPool:
             prefix + "-t")
         self.heartbeat = Heartbeat(prefix + "-hb", self.max_workers,
                                    create=True)
-        self._res = self._ctx.Queue()
+        # the reading ends of the workers' report pipes, one per
+        # incarnation, each kept until its writer's end of file
+        self._readers: List[Any] = []
         self._cmd: List[Optional[Any]] = [None] * self.max_workers
         self._procs: List[Optional[Any]] = [None] * self.max_workers
         self._retired: List[Any] = []       # cmd queues of dead incarnations
@@ -752,6 +761,7 @@ class ProcessWorkerPool:
         self._incarnation[i] += 1
         q = self._ctx.Queue()
         self._cmd[i] = q
+        reader, writer = self._ctx.Pipe(duplex=False)
         self.heartbeat.beat(i)
         plan_dict = (self.fault_plan.to_dict()
                      if self.fault_plan is not None else None)
@@ -760,10 +770,16 @@ class ProcessWorkerPool:
             args=(self._specs[i].to_dict(), self.ring.spec,
                   self.channel.spec, self.heartbeat.name, i,
                   self._incarnation[i], i * self.slots_per_worker,
-                  self.slots_per_worker, plan_dict, q, self._res))
+                  self.slots_per_worker, plan_dict, q, writer))
         self._procs[i] = p
         self._spawned_at[i] = time.monotonic()
-        p.start()
+        try:
+            p.start()
+        finally:
+            # the child holds the writing end now (passed at its exec); with
+            # the pool's copy closed, the child's exit ends the pipe
+            writer.close()
+        self._readers.append(reader)
 
     def _note(self, msg):
         """Record what a result message measured: a worker's start seconds
@@ -799,9 +815,8 @@ class ProcessWorkerPool:
             if self._stash:
                 msg = self._stash.popleft()
             else:
-                try:
-                    msg = self._res.get(timeout=0.25)
-                except _queue.Empty:
+                msg = self._recv(0.25)
+                if msg is None:
                     self._check_alive()
                     if time.monotonic() > deadline:
                         raise TimeoutError(
@@ -815,6 +830,33 @@ class ProcessWorkerPool:
                 raise err
             return self._note(msg)
 
+    def _recv_from(self, reader):
+        """One report from ``reader``; ``None`` at its end of file (its
+        writer exited, also in the middle of a report), where the reader is
+        dropped."""
+        try:
+            return reader.recv()
+        except (EOFError, OSError):
+            self._readers.remove(reader)
+            reader.close()
+            return None
+
+    def _recv(self, timeout: float):
+        """The next report of any worker incarnation, or ``None`` when none
+        arrives within ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        while True:
+            remaining = max(0.0, deadline - time.monotonic())
+            if not self._readers:
+                time.sleep(remaining)
+                return None
+            for reader in connection.wait(self._readers, remaining):
+                msg = self._recv_from(reader)
+                if msg is not None:
+                    return msg
+            if time.monotonic() >= deadline:
+                return None
+
     def _read_slot(self, slot: int):
         traj, meta = self.ring.read(slot)
         self.ring.ack(slot)
@@ -826,22 +868,18 @@ class ProcessWorkerPool:
         No liveness check, no error translation: the supervisor's job."""
         if self._stash:
             return self._note(self._stash.popleft())
-        try:
-            return self._note(self._res.get(timeout=timeout))
-        except _queue.Empty:
-            return None
+        msg = self._recv(timeout)
+        return None if msg is None else self._note(msg)
 
     def drain_pending(self) -> None:
-        """Move every queued result message into the stash. A producer
-        SIGKILLed mid-``put`` can leave a partly pickled message; an error
-        while unpickling ends the drain (the next drain retries)."""
-        while True:
-            try:
-                self._stash.append(self._res.get_nowait())
-            except _queue.Empty:
-                return
-            except Exception:
-                return
+        """Move every result message already sent into the stash. A report
+        its writer died in the middle of reads as the end of its pipe."""
+        for reader in list(self._readers):
+            while reader.poll(0):
+                msg = self._recv_from(reader)
+                if msg is None:
+                    break
+                self._stash.append(msg)
 
     def dead_workers(self) -> List[Tuple[int, Optional[int]]]:
         """Active workers whose process has exited: [(wid, exitcode)]."""
@@ -1062,13 +1100,15 @@ class ProcessWorkerPool:
             if p.exitcode not in (0, None)
             and i not in self._terminated
             and i not in self._crash_surfaced]
-        for q in [q for q in self._cmd if q is not None] + self._retired + [
-                self._res]:
+        for q in [q for q in self._cmd if q is not None] + self._retired:
             try:
                 q.close()
                 q.cancel_join_thread()
             except Exception:
                 pass
+        for reader in self._readers:
+            reader.close()
+        self._readers.clear()
         self.ring.close(unlink=True)
         self.channel.close(unlink=True)
         self.heartbeat.close(unlink=True)

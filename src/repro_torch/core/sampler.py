@@ -1,5 +1,6 @@
 """Rollout samplers, WALL-E's N parallel sampler processors (port of the
-env sampler and ``WorkerSpec`` of ``repro/core/sampler.py``).
+env sampler, the LM sampler and ``WorkerSpec`` of
+``repro/core/sampler.py``).
 
 ``make_algo_rollout`` acts through an algorithm's hooks; ``make_env_rollout``
 is the reference's PPO-family rollout, the same loop acting through
@@ -15,12 +16,14 @@ body also runs on injected noise and candidates, which tests use.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.envs.base import auto_reset_batch
+from repro_torch.models import transformer
+from repro_torch.serve import sampling
 
 
 def batched_step(env) -> Callable:
@@ -127,6 +130,53 @@ def make_env_rollout(env, horizon: int) -> Callable:
     ``(T, B, ...)`` and ``last_value`` ``(B,)``. Its step body is
     ``make_rollout_step(MLPPolicyHooks, ...)``."""
     return make_algo_rollout(MLPPolicyHooks, env, horizon)
+
+
+# ============================================================== LM sampler
+def make_lm_rollout(cfg, lmenv, gen_len: int) -> Callable:
+    """Sequence-policy sampler: prefill the prompt, then decode ``gen_len``
+    tokens (the experience-collection inner loop), scored by the token
+    reward model (``lmenv.token_rewards``).
+
+    ``rollout(params, prompt, *, generator=None, gumbel=None)`` returns
+    ``tokens``, ``logp`` (each token's behaviour log-prob), ``rewards`` and
+    ``prompt``, each ``(B, T)`` batch-major as the reference's. A token is
+    ``argmax(logits + g)``, which is how ``jax.random.categorical`` draws:
+    ``g`` is Gumbel noise from ``generator``, or step ``t``'s row
+    ``gumbel[t]`` of an injected ``(gen_len, B, V)`` tensor (the tests
+    inject the reference's). The loop runs under ``torch.inference_mode``
+    with the decode state updated in place, and the kernels follow the
+    process-global mode, as serving does; the outputs are cloned out of
+    inference mode, so a train step can take them."""
+
+    def rollout(params, prompt: torch.Tensor, *,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+        if gumbel is None and generator is None:
+            raise ValueError("make_lm_rollout: pass a generator or the "
+                             "gumbel noise")
+        draw = sampling.gumbel_source(generator) if gumbel is None else None
+        with torch.inference_mode():
+            state, logits = transformer.prefill(cfg, params, prompt,
+                                                gen_budget=gen_len)
+            toks, logps = [], []
+            for t in range(gen_len):
+                g = (draw(tuple(logits.shape)) if draw is not None
+                     else gumbel[t].to(logits.device))
+                tok = torch.argmax(logits + g, dim=-1)
+                logps.append(torch.gather(torch.log_softmax(logits, -1),
+                                          -1, tok[:, None])[:, 0])
+                toks.append(tok)
+                state, logits = transformer.decode_step(cfg, params, state,
+                                                        tok[:, None])
+            tokens = torch.stack(toks, dim=1)               # (B, T)
+            traj = {"tokens": tokens, "logp": torch.stack(logps, dim=1),
+                    "rewards": lmenv.token_rewards(tokens),
+                    "prompt": prompt}
+        return {k: v.clone() for k, v in traj.items()}
+
+    return rollout
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,10 +1,11 @@
-"""End-to-end training entry point (port of ``--mode rl`` of
-``repro/launch/train.py``).
+"""End-to-end training entry point (port of ``repro/launch/train.py``).
 
-Builds an ``ExperimentSpec`` from the flags and runs it through
-``repro_torch.experiment.run``, printing one JSON ``IterationLog`` per
-line. Runs on the CUDA device unless ``--device cpu`` is given; rollout
-workers (``--backend process``) take the same device.
+``--mode rl`` (the default) builds an ``ExperimentSpec`` from the flags and
+runs it through ``repro_torch.experiment.run``, printing one JSON
+``IterationLog`` per line. ``--mode lm`` trains a sequence-model policy
+with token-level PPO on random batches (``run_lm``). Runs on the CUDA
+device unless ``--device cpu`` is given; rollout workers (``--backend
+process``) take the same device.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --mode rl --env cheetah \
@@ -34,6 +35,18 @@ envs (or ``--env-batch``), each collect -> learn iteration one CUDA-graph
 replay on the card, ``--chunk`` iterations between host syncs (default:
 all of them).
 
+``--mode lm`` (the reference's ``run_lm``): ``init_params`` of ``--arch``
+(default ``mixtral-8x7b-reduced``) from ``--seed``, Adam at ``--lr``
+(default 3e-4) with moments in the config's dtype, then ``--steps`` PPO
+steps, each on a fresh random ``--batch`` × ``--seq-len`` batch drawn on
+the device (frontend archs get zero embeds); one ``step i: loss=... (s)``
+line a step. The model trains on its plain paths (the CUDA kernels have
+no backward):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+      --arch hymba-1.5b --batch 2 --seq-len 64 --steps 3 [--device cpu] \
+      [--ckpt-dir /tmp/lm]
+
 ``--ckpt-dir D`` saves the run's params at step ``--iterations`` (only the
 params, never the optimizer state) with ``{"mode": "rl", "spec": ...}`` as
 metadata, in the format both packages read: ``python -m
@@ -54,12 +67,22 @@ Algos: ``ppo`` and ``trpo`` (on-policy, the ``fifo`` buffer), ``sac`` and
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import time
+from typing import Any, Dict, List
+
+import torch
 
 from repro_torch import checkpoint, convert, experiment
+from repro_torch.algos.ppo import PPOConfig, make_lm_train_step
 from repro_torch.algos.staleness import MODES as STALENESS_MODES
+from repro_torch.configs import get_config
+from repro_torch.core.timing import synchronize
 from repro_torch.experiment import ExperimentSpec, Schedule
 from repro_torch.kernels.select import ALIASES, MODES
+from repro_torch.models import transformer
+from repro_torch.optim import adam
 
 
 def spec_from_args(args) -> ExperimentSpec:
@@ -127,12 +150,86 @@ def run_rl(args) -> experiment.ExperimentResult:
     return result
 
 
-def main(argv=None) -> experiment.ExperimentResult:
+@dataclasses.dataclass
+class LMTrainRun:
+    """What ``--mode lm`` leaves readable: the model, the optimizer state,
+    each step's metrics (floats) and seconds."""
+    cfg: Any
+    params: transformer.LM
+    opt_state: Any
+    metrics: List[Dict[str, float]]
+    seconds: List[float]
+
+
+def lm_batch(cfg, B: int, S: int, generator: torch.Generator
+             ) -> Dict[str, torch.Tensor]:
+    """One random training batch on the generator's device, as the
+    reference's ``run_lm`` makes it: it draws tokens and targets from one
+    key (so they are equal) and advantages and returns from one key (so
+    are they); behaviour logp -5, mask 1, zero frontend embeds."""
+    device = generator.device
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=generator,
+                           device=device)
+    normal = torch.randn((B, S), generator=generator, device=device)
+    batch = {"tokens": tokens, "targets": tokens,
+             "behavior_logp": -torch.ones((B, S), device=device) * 5.0,
+             "advantages": normal, "returns": normal,
+             "mask": torch.ones((B, S), device=device)}
+    if cfg.frontend_embeds:
+        batch["extra_embeds"] = torch.zeros(
+            (B, cfg.frontend_embeds, cfg.d_model),
+            dtype=getattr(torch, cfg.dtype), device=device)
+    return batch
+
+
+def run_lm(args) -> LMTrainRun:
+    device = experiment.resolve_device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(args.arch)
+    lr = args.lr if args.lr is not None else 3e-4
+    params = transformer.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed))
+    opt = adam(lr, moment_dtype=cfg.dtype)
+    opt_state = opt.init(list(params.parameters()))
+    step = make_lm_train_step(cfg, opt, PPOConfig(lr=lr))
+    data = torch.Generator(device=device).manual_seed(args.seed + 1)
+    run = LMTrainRun(cfg, params, opt_state, [], [])
+    for i in range(args.steps):
+        batch = lm_batch(cfg, args.batch, args.seq_len, data)
+        t0 = time.perf_counter()
+        params, run.opt_state, metrics = step(params, run.opt_state, batch)
+        synchronize(device)
+        dt = time.perf_counter() - t0
+        run.metrics.append({k: float(v) for k, v in metrics.items()})
+        run.seconds.append(dt)
+        print(f"step {i}: loss={run.metrics[-1]['loss']:.4f} ({dt:.2f}s)",
+              flush=True)
+    if args.ckpt_dir:
+        checkpoint.save(args.ckpt_dir, args.steps,
+                        convert.lm_params_to_jax(params),
+                        metadata={"mode": "lm", "arch": args.arch,
+                                  "seed": args.seed, "lr": lr,
+                                  "steps": args.steps, "batch": args.batch,
+                                  "seq_len": args.seq_len})
+    return run
+
+
+def main(argv=None):
     """Parse ``argv``, run, print the logs; returns the run's result
-    (params and plane state stay readable)."""
+    (``--mode rl``: an ``ExperimentResult``, whose params and plane state
+    stay readable; ``--mode lm``: an ``LMTrainRun``)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="rl",
-                    help="'rl' (the 'lm' mode is not ported yet: ROADMAP.md)")
+    ap.add_argument("--mode", choices=("rl", "lm"), default="rl")
+    ap.add_argument("--arch", default="mixtral-8x7b-reduced",
+                    help="lm mode: the architecture (a -reduced suffix "
+                         "gives its CPU-sized variant)")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="lm mode: train steps")
+    ap.add_argument("--batch", type=int, default=2,
+                    help="lm mode: sequences a step")
+    ap.add_argument("--seq-len", type=int, default=64,
+                    help="lm mode: tokens a sequence")
     ap.add_argument("--env", default="pendulum")
     ap.add_argument("--algo", default="ppo")
     ap.add_argument("--backend", default="inline")
@@ -161,7 +258,9 @@ def main(argv=None) -> experiment.ExperimentResult:
                          "ignored under --overlap)")
     ap.add_argument("--iterations", type=int, default=10)
     ap.add_argument("--hidden", type=int, default=64)
-    ap.add_argument("--lr", type=float, default=None)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="learning rate (default: the algorithm's own; "
+                         "lm mode: 3e-4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="auto",
                     choices=MODES + tuple(ALIASES),
@@ -211,14 +310,12 @@ def main(argv=None) -> experiment.ExperimentResult:
                     help="torch device (default: cuda, which must exist)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="after the run, save its params at step "
-                         "--iterations in the reference's checkpoint "
-                         "format, with the spec in the metadata (what "
-                         "repro_torch.launch.serve_policy --ckpt serves)")
+                         "--iterations (lm mode: --steps) in the "
+                         "reference's checkpoint format, with the spec in "
+                         "the metadata (what repro_torch.launch."
+                         "serve_policy --ckpt serves)")
     args = ap.parse_args(argv)
-    if args.mode != "rl":
-        raise SystemExit(f"--mode {args.mode} is not ported to repro_torch "
-                         f"yet; see ROADMAP.md")
-    return run_rl(args)
+    return run_lm(args) if args.mode == "lm" else run_rl(args)
 
 
 if __name__ == "__main__":

@@ -246,11 +246,14 @@ def decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 # ============================================================== full apply
 def attention_block(cfg, p: Attention, x: torch.Tensor, cos: torch.Tensor,
-                    sin: torch.Tensor, *, return_kv: bool = False):
-    """Prefill attention for one layer. x (B,S,D). The flash kernel under
-    the kernel mode on a CUDA tensor, else ``swa`` / ``full_causal``."""
+                    sin: torch.Tensor, *, return_kv: bool = False,
+                    impl: Optional[str] = None):
+    """Training/prefill attention for one layer. x (B,S,D). The flash
+    kernel under the kernel mode (or ``impl``) on a CUDA tensor, else
+    ``swa`` / ``full_causal``; training passes ``impl="ref"`` (the kernel
+    has no backward)."""
     q, k, v = project_qkv(cfg, p, x, cos, sin)
-    if select.use_kernel(None, q):
+    if select.use_kernel(impl, q):
         o = flash_attention_cuda(q, k, v, causal=True,
                                  window=cfg.sliding_window)
     elif cfg.sliding_window:

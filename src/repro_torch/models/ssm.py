@@ -1,5 +1,4 @@
-"""Mamba1 selective-SSM block (port of ``repro/models/ssm.py``): the parts
-the serving path runs.
+"""Mamba1 selective-SSM block (port of ``repro/models/ssm.py``).
 
 ``SSM`` holds the reference's ``init_ssm`` parameters. Prefill
 (``transformer._ssm_prefill``) runs ``kernels.selective_scan`` over the
@@ -7,8 +6,16 @@ prompt: the CUDA kernel under the kernel mode on a CUDA tensor, else the
 sequential recurrence (``selective_scan_ref``), which stands in for the
 reference's chunked associative scan (the same function, another order of
 float sums).
+
+Training (``ssm_block``, ``impl="reference"``) runs ``selective_scan``
+here: the reference's chunked scan, chunks of ``chunk`` steps threaded in
+order, each solved by the reference's associative scan (``_assoc_scan``,
+``jax.lax.associative_scan``'s even/odd recursion written out), so
+autograd differentiates it and the state held is ``(B, chunk, Di, N)``.
+The kernel route (``impl`` ``"pallas"`` or ``"cuda"``) runs the CUDA scan,
+which has no backward: it raises where a gradient is required.
+
 Decode is the O(1) single-step recurrence on the conv ring and the state.
-``ssm_block`` (the training forward) waits for the training slice.
 """
 from __future__ import annotations
 
@@ -19,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.models import layers
 
 
@@ -87,6 +95,106 @@ def causal_conv(p: SSM, x: torch.Tensor) -> torch.Tensor:
         y = y + xp[:, j:j + S].float() * w[j]
     y = y.to(x.dtype)
     return y + p.conv_b.to(y.dtype)
+
+
+# ============================================================ chunked scan
+def _scan_combine(a, b):
+    """Associative combine for (decay, increment) pairs; ``a`` is the
+    earlier element."""
+    a1, b1 = a
+    a2, b2 = b
+    return a1 * a2, a2 * b1 + b2
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Along axis 1: even[0], odd[0], even[1], odd[1], ..."""
+    n = even.shape[1] + odd.shape[1]
+    out = even.new_empty((even.shape[0], n) + tuple(even.shape[2:]))
+    out = out.index_copy(1, torch.arange(0, n, 2, device=even.device), even)
+    return out.index_copy(1, torch.arange(1, n, 2, device=even.device), odd)
+
+
+def _assoc_scan(elems):
+    """Inclusive scan of ``(decay, increment)`` pairs along axis 1, by the
+    even/odd recursion of ``jax.lax.associative_scan``: combine adjacent
+    pairs, scan those, then fill in the even positions."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    reduced = _scan_combine([e[:, 0:-1:2] for e in elems],
+                            [e[:, 1::2] for e in elems])
+    odd = _assoc_scan(reduced)
+    if n % 2 == 0:
+        even = _scan_combine([e[:, :-1] for e in odd],
+                             [e[:, 2::2] for e in elems])
+    else:
+        even = _scan_combine(odd, [e[:, 2::2] for e in elems])
+    even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def selective_scan(dt: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, xc: torch.Tensor, h0: torch.Tensor,
+                   *, chunk: int = 256
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Selective-SSM scan (all-float32 inputs), differentiable.
+
+    dt (B,S,Di), A (Di,N), b/c (B,S,N), xc (B,S,Di), h0 (B,Di,N).
+    Returns y (B,S,Di) and the final state (B,Di,N).
+    """
+    S = xc.shape[1]
+    if S % chunk:
+        chunk = S                                       # single chunk
+    h, ys = h0, []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        dt_c, b_c, c_c, x_c = dt[:, sl], b[:, sl], c[:, sl], xc[:, sl]
+        abar = torch.exp(dt_c[..., None] * A)           # (B,Q,Di,N)
+        bx = (dt_c * x_c)[..., None] * b_c[:, :, None, :]
+        pa, pb = _assoc_scan([abar, bx])
+        h_t = pa * h[:, None] + pb                      # (B,Q,Di,N)
+        ys.append(torch.einsum("bqdn,bqn->bqd", h_t, c_c))
+        h = h_t[:, -1]
+    return torch.cat(ys, dim=1), h
+
+
+# ================================================================== blocks
+KERNEL_IMPLS = ("pallas", "cuda")
+
+
+def ssm_block(cfg, p: SSM, x: torch.Tensor, *, impl: str = "reference"
+              ) -> torch.Tensor:
+    """Full Mamba1 mixer for training/prefill. x (B,S,D) -> (B,S,D).
+
+    ``impl="reference"``: the plain chunked scan above. ``"pallas"`` (the
+    reference's name) or ``"cuda"``: ``kernels.selective_scan`` (the CUDA
+    kernel on a CUDA tensor), forward only, so it raises ``RuntimeError``
+    where autograd would need its gradient."""
+    if impl not in ("reference",) + KERNEL_IMPLS:
+        raise ValueError(f"unknown ssm impl {impl!r}")
+    B = x.shape[0]
+    di = cfg.d_inner
+    xz = layers.matmul(x, p.in_proj)
+    xin, z = xz[..., :di], xz[..., di:]
+    xc = F.silu(causal_conv(p, xin).float()).to(x.dtype)
+    dt, b, c = _ssm_inputs(cfg, p, xc)
+    A = -torch.exp(p.A_log)
+    h0 = torch.zeros((B, di, cfg.ssm_state), dtype=torch.float32,
+                     device=x.device)
+    if impl in KERNEL_IMPLS:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (dt, A, b, c, xc)):
+            raise RuntimeError(
+                f"ssm_block(impl={impl!r}): the selective-scan kernel has "
+                f"no backward; train with impl='reference' (the reference "
+                f"trains on its plain scan too)")
+        y, _ = scan_ops.selective_scan(dt, A, b, c, xc.float(), h0,
+                                       impl="cuda")
+    else:
+        y, _ = selective_scan(dt, A, b, c, xc.float(), h0)
+    y = y + p.D * xc.float()
+    y = y * F.silu(z.float())
+    return layers.matmul(y.to(x.dtype), p.out_proj)
 
 
 def ssm_decode_block(cfg, p: SSM, x: torch.Tensor, conv_state: torch.Tensor,

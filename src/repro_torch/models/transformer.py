@@ -1,13 +1,23 @@
-"""Decoder-only sequence model for serving (port of
-``repro/models/transformer.py``): dense, SSM and hybrid families.
+"""Decoder-only sequence model: dense / MoE / SSM / hybrid / audio / vlm
+(port of ``repro/models/transformer.py``).
 
 ``LM`` holds the reference's ``init_params`` pytree as modules: the stacked
 ``layers`` tree (leading ``L`` axis) becomes an ``nn.ModuleList`` of
 ``Layer``s, one per layer, and the layer loop is a Python loop (the
-reference's ``lax.scan``). The serving entry points:
+reference's ``lax.scan``). The entry points:
 
+* ``forward``     — full-sequence hidden states and the MoE aux loss
+  (training), with the reference's activation-rematerialisation modes
+  through ``torch.utils.checkpoint``;
+* ``value``, ``token_logp_entropy`` — the heads the PPO loss reads;
 * ``prefill``     — the prompt, the decode state, and last-token logits;
 * ``decode_step`` — one token against the state.
+
+Training runs the plain paths (the reference trains with
+``impl="reference"``; the CUDA kernels have no backward): attention is
+always the plain ``swa`` / ``full_causal`` in ``forward``, and the scan is
+the plain chunked one unless ``impl`` names the kernel. Serving
+(``prefill``, ``decode_step``) follows the process-global kernel mode.
 
 Two differences from the reference, both for the serving loop on the card:
 the decode state is updated **in place** (the K/V slot, the conv ring and
@@ -16,34 +26,20 @@ Python int, so that ``write_idx = pos % C`` never waits for the device.
 Its other keys are the reference's: ``k``/``v`` ``(L,B,C,K,hd)``,
 ``cache_pos (C,)`` int32, ``conv (L,B,conv-1,Di)`` and ``ssm (L,B,Di,N)``
 float32.
-
-The MoE, audio and vision-language families (``models/moe.py``, frontend
-embeds, M-RoPE) and the training forward (``forward``, ``value``,
-``token_logp_entropy``) wait for later slices of the port; ``LM`` raises
-for those configs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+import math
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.kernels.selective_scan.ops import selective_scan
-from repro_torch.models import attention, layers, rope, ssm
-
-
-def _check_ported(cfg) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE block (models/moe.py) is not ported to "
-            f"repro_torch yet; it comes with the MoE slice of the port")
-    if cfg.frontend != "none" or cfg.m_rope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: frontend embeds and M-RoPE are not ported to "
-            f"repro_torch yet; they come with the audio and vision-language "
-            f"slice of the port")
+from repro_torch.models import attention, layers, moe, rope, ssm
 
 
 # ===================================================================== init
@@ -68,8 +64,11 @@ class Layer(nn.Module):
             self.fuse_norm_ssm = norm()
         if cfg.d_ff:
             self.mlp_norm = norm()
-            self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype, generator,
-                                  device)
+            if cfg.is_moe:
+                self.moe = moe.MoE(cfg, generator, device)
+            else:
+                self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype,
+                                      generator, device)
 
 
 class LM(nn.Module):
@@ -82,7 +81,6 @@ class LM(nn.Module):
     def __init__(self, cfg, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
-        _check_ported(cfg)
         if generator is not None:
             device = generator.device
         dtype = layers.param_dtype(cfg)
@@ -107,24 +105,168 @@ def init_params(cfg, generator: torch.Generator) -> LM:
 
 # ================================================================ positions
 def _rope_tables(cfg, positions: torch.Tensor):
-    """positions (B,S) -> (cos, sin) of (B,S,half)."""
+    """positions (B,S) or (3,B,S) -> (cos, sin) of (B,S,half)."""
     return rope.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                              cfg.m_rope_sections)
 
 
 def default_positions(cfg, batch: int, seq: int, device) -> torch.Tensor:
-    return torch.arange(seq, dtype=torch.int32, device=device).expand(
+    """``arange(seq)`` per row, (B,S); (3,B,S) for M-RoPE archs."""
+    pos = torch.arange(seq, dtype=torch.int32, device=device).expand(
         batch, seq)
+    if cfg.m_rope_sections:
+        pos = pos.expand(3, batch, seq)
+    return pos
 
 
-def embed_inputs(cfg, params: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeds with the meta tokens prepended."""
+# ============================================================== layer body
+def _layer_fwd(cfg, p: Layer, h: torch.Tensor, cos, sin, impl: str
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer, full sequence. Returns (h, moe_aux). Attention takes its
+    plain path whatever the kernel mode, as the reference's does."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        h = h + ssm.ssm_block(cfg, p.ssm, layers.rmsnorm(p.ssm_norm, h,
+                                                         cfg.norm_eps),
+                              impl=impl)
+        return h, aux
+    xn = layers.rmsnorm(p.attn_norm, h, cfg.norm_eps)
+    a = attention.attention_block(cfg, p.attn, xn, cos, sin, impl="ref")
+    if cfg.family == "hybrid":
+        s = ssm.ssm_block(cfg, p.ssm, xn, impl=impl)
+        mixed = 0.5 * (layers.rmsnorm(p.fuse_norm_attn, a, cfg.norm_eps)
+                       + layers.rmsnorm(p.fuse_norm_ssm, s, cfg.norm_eps))
+        h = h + mixed
+    else:
+        h = h + a
+    if cfg.d_ff:
+        y, moe_aux = _mlp(cfg, p, layers.rmsnorm(p.mlp_norm, h,
+                                                 cfg.norm_eps))
+        h = h + y
+        if moe_aux is not None:
+            aux = moe_aux
+    return h, aux
+
+
+def _mlp(cfg, p: Layer, xm: torch.Tensor
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP on the normed stream: (y, the MoE aux loss, or None
+    for a SwiGLU MLP)."""
+    if cfg.is_moe:
+        return moe.moe_block(cfg, p.moe, xm)
+    return layers.mlp(p.mlp, xm), None
+
+
+# ================================================================= forward
+def embed_inputs(cfg, params: LM, tokens: torch.Tensor,
+                 extra_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Token embeds with (meta tokens | frontend embeds) prepended."""
     h = layers.embed(params.embed, tokens)
+    prefix = []
     if params.meta_tokens is not None:
         B = tokens.shape[0]
-        meta = params.meta_tokens[None].expand(B, *params.meta_tokens.shape)
-        h = torch.cat([meta, h], dim=1)
+        prefix.append(params.meta_tokens[None].expand(
+            B, *params.meta_tokens.shape))
+    if extra_embeds is not None:
+        prefix.append(extra_embeds.to(h.dtype))
+    if prefix:
+        h = torch.cat(prefix + [h], dim=1)
     return h
+
+
+def _near_sqrt_factor(L: int) -> int:
+    """Largest divisor of L that is <= sqrt(L) (1 if L is prime)."""
+    for d in range(int(math.isqrt(L)), 0, -1):
+        if L % d == 0:
+            return d
+    return 1
+
+
+REMAT_MODES = ("none", "full", "scan2", "dots", "scan2_dots")
+# what the reference's ``dots_with_no_batch_dims_saveable`` keeps: the
+# outputs of products without batch dimensions, here the projections' 2-D
+# matmuls (the attention and expert einsums are batched and recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, dots: bool = False):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant); with
+    ``dots``, the matmul outputs are saved and the rest recomputed."""
+    kw = {}
+    if dots:
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def forward(cfg, params: LM, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            extra_embeds: Optional[torch.Tensor] = None,
+            impl: str = "reference",
+            remat: str = "scan2") -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S_tok) -> (hidden (B, S_total, D), moe_aux f32 scalar).
+
+    remat (what backward keeps; the values are the same in every mode):
+    ``"none"``; ``"full"`` (one checkpoint a layer); ``"scan2"`` (groups of
+    ``_near_sqrt_factor(L)`` layers, each group checkpointed and each layer
+    in it too); ``"dots"`` (each layer checkpointed, its matmul outputs
+    saved); ``"scan2_dots"`` (``"scan2"`` with the inner layers' matmul
+    outputs saved). Where ``L`` has no factor above 1 the two ``scan2``
+    modes checkpoint each layer, as the reference's fall back."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {remat!r}; choose from "
+                         f"{REMAT_MODES}")
+    h = embed_inputs(cfg, params, tokens, extra_embeds)
+    B, S, _ = h.shape
+    if positions is None:
+        positions = default_positions(cfg, B, S, h.device)
+    cos = sin = None
+    if cfg.has_attention:
+        cos, sin = _rope_tables(cfg, positions)
+
+    def body(layer):
+        return lambda x: _layer_fwd(cfg, layer, x, cos, sin, impl)
+
+    L = cfg.n_layers
+    two_level = remat in ("scan2", "scan2_dots")
+    L1 = _near_sqrt_factor(L) if two_level else 1
+    auxes: List[torch.Tensor] = []
+    if two_level and L1 > 1:
+        L2 = L // L1
+
+        def group(g):
+            def run(x):
+                aux = []
+                for layer in params.layers[g * L2:(g + 1) * L2]:
+                    x, a = _checkpointed(body(layer),
+                                         dots=remat == "scan2_dots")(x)
+                    aux.append(a)
+                return x, torch.stack(aux).sum()
+            return run
+
+        for g in range(L1):
+            h, a = _checkpointed(group(g))(h)
+            auxes.append(a)
+    else:
+        for layer in params.layers:
+            fn = body(layer)
+            if remat in ("full", "scan2", "scan2_dots"):
+                fn = _checkpointed(fn)
+            elif remat == "dots":
+                fn = _checkpointed(fn, dots=True)
+            h, a = fn(h)
+            auxes.append(a)
+    h = layers.rmsnorm(params.final_norm, h, cfg.norm_eps)
+    return h, torch.stack(auxes).sum()
 
 
 # ================================================================== heads
@@ -132,6 +274,37 @@ def lm_logits(cfg, params: LM, h: torch.Tensor) -> torch.Tensor:
     """Full logits in float32 (products of the weight dtype summed in
     float32, the reference's ``preferred_element_type``)."""
     return torch.matmul(h.float(), params.lm_head.w.float())
+
+
+def value(cfg, params: LM, h: torch.Tensor) -> torch.Tensor:
+    """Value head (B,S) f32."""
+    return layers.linear(params.value_head, h)[..., 0].float()
+
+
+def _chunk_logp_entropy(w: torch.Tensor, hc: torch.Tensor, tc: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    z = torch.matmul(hc.float(), w.float())             # (B,chunk,V) f32
+    lse = torch.logsumexp(z, dim=-1)
+    tgt = torch.gather(z, -1, tc[..., None].long())[..., 0]
+    p = torch.softmax(z, dim=-1)
+    ent = lse - torch.sum(p * z, dim=-1)
+    return tgt - lse, ent
+
+
+def token_logp_entropy(cfg, params: LM, h: torch.Tensor,
+                       targets: torch.Tensor, chunk: int = 256
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token log-prob of ``targets`` and entropy, chunked over S (each
+    chunk checkpointed, so backward recomputes its logits): the (B,S,V)
+    float32 logits never exist whole. Returns two (B,S) f32 tensors."""
+    S = h.shape[1]
+    if S % chunk:
+        chunk = S
+    w = params.lm_head.w
+    run = _checkpointed(functools.partial(_chunk_logp_entropy, w))
+    logp, ent = zip(*(run(h[:, s0:s0 + chunk], targets[:, s0:s0 + chunk])
+                      for s0 in range(0, S, chunk)))
+    return torch.cat(logp, dim=1), torch.cat(ent, dim=1)
 
 
 # ============================================================ decode cache
@@ -193,8 +366,7 @@ def _layer_decode(cfg, p: Layer, h, cos, sin, caches, valid, write_idx):
     else:
         h = h + a
     if cfg.d_ff:
-        xm = layers.rmsnorm(p.mlp_norm, h, cfg.norm_eps)
-        h = h + layers.mlp(p.mlp, xm)
+        h = h + _mlp(cfg, p, layers.rmsnorm(p.mlp_norm, h, cfg.norm_eps))[0]
     return h
 
 
@@ -212,6 +384,8 @@ def decode_step(cfg, params: LM, state: Dict[str, Any], token: torch.Tensor
     if cfg.has_attention:
         p_ids = torch.full((h.shape[0], 1), pos, dtype=torch.int32,
                            device=h.device)
+        if cfg.m_rope_sections:
+            p_ids = p_ids.expand(3, *p_ids.shape)
         cos, sin = _rope_tables(cfg, p_ids)
         C = state["k"].shape[2]
         write_idx = pos % C
@@ -232,16 +406,17 @@ def decode_step(cfg, params: LM, state: Dict[str, Any], token: torch.Tensor
 # ================================================================= prefill
 @torch.no_grad()
 def prefill(cfg, params: LM, tokens: torch.Tensor, gen_budget: int = 0, *,
-            positions: Optional[torch.Tensor] = None
+            positions: Optional[torch.Tensor] = None,
+            extra_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """Process the prompt, build the decode state, return last-token
     logits (B,V) f32.
 
-    The cache is sized for the internal prompt length (meta tokens
-    included) plus ``gen_budget`` further decode steps, capped at the
-    sliding window for SWA archs.
+    The cache is sized for the internal prompt length (tokens + frontend
+    embeds + meta tokens) plus ``gen_budget`` further decode steps, capped
+    at the sliding window for SWA archs.
     """
-    h = embed_inputs(cfg, params, tokens)
+    h = embed_inputs(cfg, params, tokens, extra_embeds)
     B, P, _ = h.shape
     if positions is None:
         positions = default_positions(cfg, B, P, h.device)
@@ -274,7 +449,7 @@ def prefill(cfg, params: LM, tokens: torch.Tensor, gen_budget: int = 0, *,
         state["v"][i] = _fill_cache(v, C, P)
         if cfg.d_ff:
             xm = layers.rmsnorm(lp.mlp_norm, h, cfg.norm_eps)
-            h = h + layers.mlp(lp.mlp, xm)
+            h = h + _mlp(cfg, lp, xm)[0]
 
     state["pos"] = P
     if cfg.has_attention:

@@ -171,7 +171,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(backend="sharded"),
     dict(schedule=Schedule(fsdp=True)),
     dict(runtime="async", backend="process", schedule=Schedule(fsdp=True)),
-    dict(algo_kwargs={"aux_coef": 0.1}),
+    # (aux_coef, refused here until the LM training slice, is accepted
+    # now: tests/test_torch_lm_cli.py)
+    dict(runtime="fused", schedule=Schedule(learner_microbatches=2)),
     dict(schedule=Schedule(learner_devices=2)),
     # the reference's overlap over a learner mesh (offset=1, pin_params)
     dict(schedule=Schedule(overlap=True, learner_devices=2)),

@@ -75,7 +75,21 @@ Phases, each of which raises (and so exits non-zero) on failure:
    budget and replay, 3 iterations). Every log must be finite with the
    expected sample count, and each kernel's count must equal the steps,
    learns, inserts, draws and priority updates the run made (a ring
-   insert or gather is one launch for all the leaves). Then envs with
+   insert or gather is one launch for all the leaves). Then the
+   data-parallel learner (``learner``, ``learner_runs``): PPO cheetah
+   through the train CLI with ``--learner-devices 1`` (bit for bit the
+   plain run above) and ``--learner-microbatches 2`` (each learn within
+   rtol 1e-4, atol 1e-5 of the plain learner on the same inputs); fused
+   PPO cheetah at 160 × 125 with two microbatches (2 eager iterations, a
+   capture, 3 replays) bit for bit the stepped microbatched run; the
+   ``ShardedLearner`` over the mesh ``[cuda:0, cuda:0]`` (two shard threads
+   on the one card): PPO within 1e-5 of the plain run, SAC and DDPG
+   prioritized (2^20 slots, batch 256) within 0.05, the sharded find's
+   global indices equal to the unsharded kernel's and the shard roots
+   summing to the root, GAE and the four replay kernels at the per-shard
+   shapes bit for bit; ``--learner-devices 2`` on one card raising the
+   mesh's ``ValueError``; GAE and the replay kernels launched once per
+   shard per call; a ``{"learner": ...}`` line. Then envs with
    half-precision obs and rewards (``env_kwargs={"dtype": ...}``): PPO
    cheetah in bfloat16 at 10 × 16 × 125 (3 iterations) and fused at one
    carry of 160 × 125 (5 iterations), SAC cheetah prioritized (2^20
@@ -2486,6 +2500,382 @@ def learning_run(counted, runs, zero_counts):
     return report
 
 
+def clone_state(x):
+    """A copy of ``x`` (a module, a tensor, or a container of them) that
+    shares no storage with it and keeps its ``requires_grad``."""
+    import copy
+    if isinstance(x, torch.nn.Module):
+        with torch.no_grad():
+            return copy.deepcopy(x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(clone_state(v) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(clone_state(v) for v in x)
+    if isinstance(x, dict):
+        return {k: clone_state(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def learner_steps():
+    """While the block runs, keep each ``ShardedLearner.train_step`` call:
+    the learner, copies of its params, optimizer state and trajectory
+    before the step, and the params after it."""
+    from repro_torch.distributed.learner import ShardedLearner
+    rec = []
+    step = ShardedLearner.train_step
+
+    def recorded(self, params, opt_state, plane, traj):
+        before = (clone_state(params), clone_state(opt_state),
+                  clone_state(traj))
+        out = step(self, params, opt_state, plane, traj)
+        rec.append((self, before,
+                    [p.detach().clone() for p in out[0].parameters()]))
+        return out
+
+    ShardedLearner.train_step = recorded
+    try:
+        yield rec
+    finally:
+        ShardedLearner.train_step = step
+
+
+def learner_step_diff(label, rec, rtol, atol):
+    """The largest absolute difference between each recorded PPO learn and
+    the plain learner (one device, one microbatch: ``make_train_step``
+    with the fifo buffer) on copies of the same params, optimizer state
+    and trajectory; asserted within ``rtol``/``atol`` unless ``atol`` is
+    None (then only logged)."""
+    from repro_torch.algos.api import make_train_step
+    from repro_torch.data.buffers import FifoBuffer
+    worst = 0.0
+    for learner, (params, opt_state, traj), got in rec:
+        plain = make_train_step(learner.algo, FifoBuffer())
+        want, _, _, _ = plain(params, opt_state, (None, None), traj)
+        for a, b in zip(got, want.parameters()):
+            b = b.detach()
+            worst = max(worst, float((a - b).abs().max()))
+            assert atol is None or torch.allclose(a, b, rtol=rtol,
+                                                  atol=atol), (
+                f"{label}: a learn differs from the plain learner's on the "
+                f"same inputs by {float((a - b).abs().max())}")
+    bound = "" if atol is None else f" within rtol {rtol}, atol {atol}"
+    log(f"  {label}: {len(rec)} learns{bound} against the plain learner "
+        f"on the same inputs: max |diff| {worst:.3g}")
+    return worst
+
+
+def max_param_diff(params, tensors):
+    return max(float((p.detach() - t).abs().max())
+               for p, t in zip(params.parameters(), tensors))
+
+
+def learner_runs(cli, counted, runs, check_logs, zero_counts, device,
+                 ppo_inline, sac_inline, ddpg_params):
+    """Slice 17, the data-parallel learner (``distributed/learner.py``),
+    on the main path's shapes. ``ppo_inline``, ``sac_inline`` and
+    ``ddpg_params`` are the main path's plain CLI runs of PPO, SAC
+    prioritized and DDPG prioritized cheetah (10 × 16 × 125, 3
+    iterations): the one-device references.
+
+    (a) PPO cheetah through the train CLI with ``--learner-devices 1`` (bit
+    for bit the plain run: trajectories and weights) and with
+    ``--learner-microbatches 2``: each learn within rtol 1e-4, atol 1e-5
+    of the plain learner on the same params and trajectory (the
+    reference's bound, ``tests/test_learner_plane.py``), and the run's
+    drift from the plain run's final weights logged. (b) fused PPO cheetah,
+    one carry of 160 × 125 at M = 2: 2 eager iterations, a capture and 3
+    replays, bit for bit the stepped M = 2 run from the same carry, the
+    accumulation inside the graph (its kernel nodes read by name); the
+    seconds of a replayed iteration at M = 2 and M = 1. (c) the
+    ``ShardedLearner`` over the mesh ``[cuda:0, cuda:0]`` (two shard
+    threads on the one card): PPO's final weights within 1e-5 of D = 1
+    and each learn within 1e-5 of the plain learner on the same inputs;
+    SAC and DDPG prioritized at 2^20 slots within 0.05 (the reference's
+    D = 4 bounds); the sharded find's global indices equal to the
+    unsharded kernel's for the same masses and uniforms, the shard roots
+    summing to the root; GAE and the four replay kernels at the per-shard
+    shapes bit for bit against their plain versions. (d) ``train
+    --learner-devices 2`` on the one card raises the mesh's
+    ``ValueError``. (e) every run's launches equal those the code
+    predicts: GAE and each replay kernel once per shard per call. Prints
+    and returns the ``learner`` report."""
+    from repro_torch import kernels as kernels_mod
+    from repro_torch.data import buffers, replay
+    from repro_torch.distributed.learner import ShardedLearner, run_shards
+    from repro_torch.distributed.replay_sharded import (
+        ShardedPrioritizedBuffer, ShardStates)
+    from repro_torch.experiment import ExperimentSpec, Schedule, run
+    from repro_torch.kernels.gae import ops as gae_ops
+    from repro_torch.kernels.replay_ring import ops as ring_ops
+    from repro_torch.kernels.sum_tree import ops as tree_ops
+    from repro_torch.kernels.sum_tree.ref import sumtree_build
+    from repro_torch.core.backends import InlineBackend
+    n, per, h = MAIN_SAMPLERS
+    B, iters, updates = n * per, 3, 4
+    report = {"device": device, "runs": {}}
+    main_argv = ["--env", "cheetah", "--algo", "ppo", "--num-samplers",
+                 str(n), "--global-batch", str(B), "--horizon", str(h),
+                 "--iterations", str(iters)]
+
+    def learn_seconds(label, logs):
+        logs = [lg if isinstance(lg, dict) else lg.as_dict() for lg in logs]
+        report["runs"][label] = {
+            "learn_s": [lg["learn_time"] for lg in logs],
+            "collect_s": [lg["collect_time"] for lg in logs],
+            "launches": {k: v for k, v in runs[label].items() if v}}
+
+    # (a) the CLI flags on one device
+    label = "learner ppo cheetah N=10 --learner-devices 1"
+    with recording(InlineBackend) as trajs:
+        logs = counted(label, lambda: cli(main_argv
+                                          + ["--learner-devices", "1"]))
+    check_logs(label, logs, iters, B * h)
+    same_run(label, snapshot_run(label, cli.result, trajs), ppo_inline)
+    assert runs[label] == zero_counts(cheetah_step=iters * n * h,
+                                      gae=iters), runs[label]
+    learn_seconds(label, logs)
+
+    label = "learner ppo cheetah N=10 --learner-microbatches 2"
+    with learner_steps() as rec:
+        logs = counted(label, lambda: cli(main_argv
+                                          + ["--learner-microbatches", "2"]))
+    check_logs(label, logs, iters, B * h)
+    assert len(rec) == iters and all(r[0].microbatches == 2 for r in rec)
+    report["m2_learn_max_diff"] = learner_step_diff(label, rec, 1e-4, 1e-5)
+    report["m2_run_drift"] = max_param_diff(
+        cli.result.params, ppo_inline["tensors"])
+    log(f"  {label}: final weights {report['m2_run_drift']:.3g} from the "
+        f"plain run's (the trajectories follow the weights)")
+    assert runs[label] == zero_counts(cheetah_step=iters * n * h,
+                                      gae=iters), runs[label]
+    learn_seconds(label, logs)
+    del rec
+
+    # (b) fused at M = 2: the accumulation inside the graph; chunks of one
+    # iteration, so iterations 3 and 4 are one replay each, timed alone
+    sched = Schedule(num_samplers=1, global_batch=B, horizon=h,
+                     iterations=5, chunk=1, learner_microbatches=2)
+    spec = ExperimentSpec(env="cheetah", algo="ppo", schedule=sched)
+    label = f"learner ppo cheetah N=1 B={B} M=2"
+    stepped = counted(label, lambda: run(spec))
+    check_logs(label, stepped.logs, 5, B * h)
+    want = (carried(stepped), [lg.mean_return for lg in stepped.logs])
+    del stepped
+    per_replay = {"cheetah_step": h, "gae": 1}
+    for m in (2, 1):
+        label = f"learner fused ppo cheetah B={B} M={m}"
+        res = counted(label, lambda: run(dataclasses.replace(
+            spec, runtime="fused", schedule=dataclasses.replace(
+                sched, learner_microbatches=m))))
+        check_logs(label, res.logs, 5, B * h)
+        stats = res.runner.graph_stats
+        nodes = graph_kernel_calls(res.runner.engine.graph)
+        assert stats["launches_per_replay"] == nodes == per_replay, (
+            stats, nodes)
+        assert runs[label] == zero_counts(
+            **{k: 5 * v for k, v in per_replay.items()}), runs[label]
+        if m == 2:
+            same_carry(f"{label} vs stepped M=2", (carried(res), [
+                lg.mean_return for lg in res.logs]), want)
+        report[f"fused_m{m}"] = {k: stats[k] for k in (
+            "warmup_s", "capture_s", "pool_mib", "launches_per_replay")}
+        report[f"fused_m{m}"]["s_per_replay"] = [lg.learn_time
+                                                 for lg in res.logs[3:]]
+        log(f"  {label}: s per replayed iteration "
+            f"{report[f'fused_m{m}']['s_per_replay']}, capture "
+            f"{stats['capture_s']:.3f} s, pool {stats['pool_mib']:.1f} MiB")
+        del res
+
+    # (c) two shard threads on the one card, the reference's mesh= argument
+    mesh = [torch.device("cuda", 0)] * 2
+    d = len(mesh)
+
+    def sharded(label, spec, iters):
+        with learner_steps() as rec:
+            res = counted(label, lambda: run(spec, mesh=mesh))
+        check_logs(label, res.logs, iters, B * h)
+        learner = res.runner._train_step.__self__
+        assert isinstance(learner, ShardedLearner) and learner.num_shards == d
+        learn_seconds(label, res.logs)
+        return res, rec
+
+    base = Schedule(num_samplers=n, global_batch=B, horizon=h,
+                    iterations=iters, learner_devices=d)
+    # at the main path's T 125 a shard's minibatch (a quarter of its
+    # flattened T × B/2 rows) ends inside a time step, so the two shards'
+    # minibatch i together are not the one-device minibatch i: another
+    # partition of the same samples, as in the reference. Logged; the
+    # bound is held at T 128, where the partitions agree
+    label = "learner ppo cheetah N=10 D=2 [cuda:0, cuda:0]"
+    res, rec = sharded(label, ExperimentSpec(env="cheetah", algo="ppo",
+                                             schedule=base), iters)
+    report["ppo_d2_t125_learn_max_diff"] = learner_step_diff(label, rec,
+                                                             0.0, None)
+    report["ppo_d2_t125_final_diff"] = max_param_diff(
+        res.params, ppo_inline["tensors"])
+    assert runs[label] == zero_counts(cheetah_step=iters * n * h,
+                                      gae=d * iters), runs[label]
+    del res, rec
+    h2 = 128
+    spec = ExperimentSpec(env="cheetah", algo="ppo",
+                          schedule=dataclasses.replace(
+                              base, horizon=h2, learner_devices=None))
+    label = f"learner ppo cheetah N=10 T={h2}"
+    one = counted(label, lambda: run(spec))
+    check_logs(label, one.logs, iters, B * h2)
+    ref128 = [p.detach().clone() for p in one.params.parameters()]
+    del one
+    label = f"learner ppo cheetah N=10 T={h2} D=2 [cuda:0, cuda:0]"
+    with learner_steps() as rec:
+        res = counted(label, lambda: run(dataclasses.replace(
+            spec, schedule=dataclasses.replace(spec.schedule,
+                                               learner_devices=d)),
+            mesh=mesh))
+    check_logs(label, res.logs, iters, B * h2)
+    learn_seconds(label, res.logs)
+    report["ppo_d2_learn_max_diff"] = learner_step_diff(label, rec, 0.0,
+                                                        1e-5)
+    report["ppo_d2_final_diff"] = max_param_diff(res.params, ref128)
+    log(f"  {label}: final weights {report['ppo_d2_final_diff']:.3g} from "
+        f"D = 1's (bound 1e-5)")
+    assert report["ppo_d2_final_diff"] < 1e-5
+    assert runs[label] == zero_counts(cheetah_step=iters * n * h2,
+                                      gae=d * iters), runs[label]
+    del res, rec
+
+    big = {"capacity": 1_000_000, "batch_size": 256}
+    for algo, ref in (("sac", sac_inline["tensors"]), ("ddpg", ddpg_params)):
+        label = f"learner {algo} cheetah N=10 prioritized D=2"
+        res, _ = sharded(label, ExperimentSpec(
+            env="cheetah", algo=algo, buffer="prioritized",
+            buffer_kwargs=big, schedule=base), iters)
+        diff = max_param_diff(res.params, ref)
+        report[f"{algo}_d2_final_diff"] = diff
+        log(f"  {label}: final weights {diff:.3g} from D = 1's (bound "
+            f"0.05)")
+        assert diff < 0.05, (label, diff)
+        assert runs[label] == zero_counts(
+            cheetah_step=iters * n * h, ring_insert=d * iters,
+            ring_gather=d * iters * updates, sumtree_find=d * iters * updates,
+            sumtree_update=d * iters * (1 + updates)), runs[label]
+        states, _ = res.runner.plane_state
+        assert isinstance(states, ShardStates) and len(states) == d
+        assert all(st.tree.capacity == CAP // d
+                   and int(st.ring.size) == iters * (B // d) * h
+                   for st in states)
+        for p in res.params.parameters():
+            assert torch.isfinite(p).all(), f"{label}: non-finite weights"
+        del res
+
+    # the sharded descent and the kernels at the per-shard shapes
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    mass = torch.rand(CAP, generator=gen, device="cuda")
+    mass[torch.rand(CAP, generator=gen, device="cuda") < 0.3] = 0.0
+    storage = ring_leaves(CAP, gen)
+    c = CAP // d
+
+    def ring_state(lo, hi):
+        return replay.ReplayState(
+            {k: v[lo:hi].clone() for k, v in storage.items()},
+            torch.zeros((), dtype=torch.int32, device="cuda"),
+            torch.tensor(hi - lo, dtype=torch.int32, device="cuda"), True)
+
+    one = torch.ones((), device="cuda")
+    shards = ShardStates(buffers.PrioritizedState(
+        ring_state(s * c, (s + 1) * c), sumtree_build(mass[s * c:(s + 1) * c]),
+        one) for s in range(d))
+    whole = buffers.PrioritizedState(ring_state(0, CAP), sumtree_build(mass),
+                                     one)
+    sbuf = ShardedPrioritizedBuffer(buffers.PrioritizedBuffer(CAP, 256), d)
+    uniforms = torch.rand(256, generator=gen, device="cuda")
+    kernels_mod.reset_launch_counts()
+    outs = run_shards(mesh, lambda s: sbuf.sample_with(shards[s], uniforms),
+                      [(s,) for s in range(d)])
+    torch.cuda.synchronize()
+    launched = kernels_mod.launch_counts()
+    assert launched["sumtree_find"] == d and launched["ring_gather"] == d, (
+        launched)
+    got = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    want = buffers.PrioritizedBuffer(CAP, 256).sample_with(whole, uniforms)
+    for k in want:
+        assert torch.equal(got[k], want[k]), f"sharded sample: {k} differs"
+    roots = sum(float(st.tree.total) for st in shards)
+    assert math.isclose(roots, float(whole.tree.total), rel_tol=1e-6)
+    log(f"  sharded find at 2^20 slots over [cuda:0, cuda:0]: 256 global "
+        f"indices, rows and weights equal to the unsharded kernel's; shard "
+        f"roots sum {roots:.9g}, root {float(whole.tree.total):.9g}")
+    pri = torch.rand(256, generator=gen, device="cuda") + 0.1
+    idx, bl = want["indices"], 256 // d
+    new = run_shards(mesh, lambda s: sbuf.update_priorities(
+        shards[s], idx[s * bl:(s + 1) * bl], pri[s * bl:(s + 1) * bl]),
+        [(s,) for s in range(d)])
+    want_st = buffers.PrioritizedBuffer(CAP, 256).update_priorities(
+        whole, idx, pri)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([st.tree.levels[0] for st in new]),
+                       want_st.tree.levels[0])
+    # the shard roots are the unsharded tree's nodes log2(D) levels down
+    assert torch.equal(torch.stack([st.tree.total for st in new]),
+                       want_st.tree.levels[-1 - int(math.log2(d))])
+
+    def exact(name, got, want):
+        got = list(got.values()) if isinstance(got, dict) else list(got)
+        want = list(want.values()) if isinstance(want, dict) else list(want)
+        assert len(got) == len(want) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, want)), f"{name} at the per-shard shape"
+
+    r, v, dn, lv = gae_inputs(h, B // d, seed=B // d)
+    exact("gae", gae_ops.gae_cuda(r, v, dn, lv, gamma=0.99, lam=0.95),
+          gae_ops.gae_ref(r, v, dn, lv, 0.99, 0.95))
+    rows = ring_leaves(B // d * h, gen)
+    start = c - 1000
+    want_ring = ring_ops.ring_insert_ref(
+        {k: x.clone() for k, x in shards[1].ring.storage.items()}, rows,
+        start)
+    exact("ring_insert", ring_ops.ring_insert(
+        shards[1].ring.storage, rows, start, impl="cuda"), want_ring)
+    loc = torch.randint(0, c, (256,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    exact("ring_gather", ring_ops.ring_gather(shards[1].ring.storage, loc,
+                                              impl="cuda"),
+          ring_ops.ring_gather_ref(shards[1].ring.storage, loc))
+    tree = shards[1].tree
+    masses = stratified_masses(tree, 256, gen)
+    exact("sumtree_find", [tree_ops.sumtree_find_batch(tree, masses,
+                                                       impl="cuda")],
+          [tree_ops.sumtree_find_batch_ref(tree, masses)])
+    # an update with other shards' rows dropped (index c), as the sharded
+    # write-back sends it
+    masked = torch.where(torch.rand(256, generator=gen, device="cuda") < 0.5,
+                         loc, c)
+    vals = torch.rand(256, generator=gen, device="cuda")
+    want_tree = tree_ops.SumTree.of(tree.flat.clone())
+    tree_ops.sumtree_update_ref(want_tree, masked, vals)
+    tree_ops.sumtree_update(tree, masked, vals, impl="cuda")
+    torch.cuda.synchronize()
+    assert torch.equal(tree.flat, want_tree.flat), "masked update differs"
+    log(f"  per-shard shapes: gae {h} x {B // d}, ring insert {B // d * h} "
+        f"rows into {c} slots, gather 256, find 256 and a masked update of "
+        f"256 in {c} leaves: bit for bit")
+
+    # (d) two learner devices on one card
+    try:
+        cli(main_argv + ["--learner-devices", "2"])
+    except ValueError as e:
+        assert "learner_devices=2" in str(e), e
+        log(f"  --learner-devices 2 on one card: ValueError: {e}")
+    else:
+        raise AssertionError("--learner-devices 2 ran on one card")
+    report["launches_checked"] = sorted(
+        k for k in runs if k.startswith("learner "))
+    log(json.dumps({"learner": report}))
+    return report
+
+
 def dtype_runs(counted, runs, check_logs, zero_counts):
     """Envs with half-precision obs and rewards, each run with the kernels
     (counted) and again with the plain versions (``kernels="ref"``, no
@@ -3352,10 +3742,19 @@ def main(argv=None) -> int:
                         float(tree.levels[0].double().sum()), rel_tol=1e-4)
     assert math.isfinite(float(max_p)) and float(max_p) >= 1.0
     finite_params(label)
+    ddpg_params = [p.detach().clone() for p in cli.result.params.parameters()]
     log(f"  ddpg prioritized: ring {int(ring.size)} of {CAP}, tree total "
         f"{float(tree.total):.6g}, max priority {float(max_p):.6g}")
 
     phase_done("main path: ppo, sac, cart-pole, trpo, ddpg")
+
+    # slice 17: the data-parallel learner
+    learner_report = learner_runs(cli, counted, runs, check_logs,
+                                  zero_counts, smi, ppo_inline, sac_inline,
+                                  ddpg_params)
+    del ddpg_params
+
+    phase_done("learner")
 
     # slice 14: half-precision obs and rewards through the env-step kernels
     dtype_runs(counted, runs, check_logs, zero_counts)
@@ -3471,6 +3870,7 @@ def main(argv=None) -> int:
     log(json.dumps({"overlap": overlap_report}))
     log(json.dumps({"serving": serving_report}))
     log(json.dumps({"lm_train": lm_train_report}))
+    log(json.dumps({"learner": learner_report}))
     log(json.dumps({"launches_by_run": runs}))
     phase_done("timings")
     log(json.dumps({"phase_seconds": seconds}))

@@ -68,6 +68,10 @@ class AlgorithmBase:
     updates_per_collect = 1
     # trajectory leaves that hold one row per env, not (T, B) ones
     tail_keys: Tuple[str, ...] = ()
+    # safe in the data-parallel learner (distributed/learner.py): every
+    # gradient of ``learn`` goes through ``grad_sync.value_and_grad`` (TRPO's
+    # conjugate-gradient and line-search gradients do not, so it opts out)
+    shardable = True
     # importance-weighted staleness correction (algos/staleness.py): off
     # unless the experiment enables it through ``enable_staleness``
     supports_staleness = False
@@ -239,6 +243,7 @@ class TRPOAlgorithm(GaussianMLPAlgorithm):
     optimizer state."""
 
     name = "trpo"
+    shardable = False               # CG/line-search grads bypass grad_sync
 
     def __init__(self, lr: float = None, hidden: int = 64, **cfg_kwargs):
         if lr is not None:

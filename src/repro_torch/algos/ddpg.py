@@ -4,9 +4,10 @@
 A deterministic tanh actor, a Q critic, and Polyak-averaged target copies
 of both. The reference draws its exploration noise from a PRNG key; here it
 is injected, as in the rest of the port: ``explore_action(params, obs,
-noise, cfg)`` takes the standard-normal draw. Each loss takes
-``torch.autograd.grad`` with respect to its own parameters only, and the
-updates are applied in place.
+noise, cfg)`` takes the standard-normal draw. Each loss takes its gradient
+with respect to its own parameters only, through
+``distributed.grad_sync.value_and_grad``, and the updates are applied in
+place.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from repro_torch.distributed import grad_sync
 from repro_torch.models.mlp_policy import init_mlp_net, mlp_apply
 from repro_torch.optim import apply_updates
 
@@ -83,32 +85,39 @@ def ddpg_update(params: DDPGParams, opt_states, batch: Dict[str, torch.Tensor],
     against the updated critic. Returns per-sample ``priorities``
     ``|q - target|`` (q before the critic step) in the metrics."""
     a_state, c_state = opt_states
-    with torch.no_grad():
-        if "discounts" in batch:
-            discounts = batch["discounts"]
-        else:
-            discounts = cfg.gamma * (1.0 - batch["dones"].to(torch.float32))
-        a_next = actor_apply(params.target_actor, batch["next_obs"])
-        q_next = critic_apply(params.target_critic, batch["next_obs"],
-                              a_next)
-        target = batch["rewards"] + discounts * q_next
-    w = batch.get("weights")
-    if w is None:
-        w = torch.ones_like(batch["rewards"])
-    q = critic_apply(params.critic, batch["obs"], batch["actions"])
-    c_loss = torch.mean(w * (q - target) ** 2)
+
+    # the target built inside the loss, so that a microbatch slices it too
+    def critic_loss(cnet, b):
+        with torch.no_grad():
+            if "discounts" in b:
+                discounts = b["discounts"]
+            else:
+                discounts = cfg.gamma * (1.0 - b["dones"].to(torch.float32))
+            a_next = actor_apply(params.target_actor, b["next_obs"])
+            q_next = critic_apply(params.target_critic, b["next_obs"],
+                                  a_next)
+            target = b["rewards"] + discounts * q_next
+        w = b.get("weights")
+        if w is None:
+            w = torch.ones_like(b["rewards"])
+        q = critic_apply(cnet, b["obs"], b["actions"])
+        return torch.mean(w * (q - target) ** 2), (q.detach(), target)
+
+    (c_loss, (q, target)), c_grads = grad_sync.value_and_grad(
+        critic_loss, params.critic, batch, has_aux=True)
     c_params = list(params.critic.parameters())
-    c_upd, c_state = critic_opt.update(torch.autograd.grad(c_loss, c_params),
-                                       c_state, c_params)
-    priorities = torch.abs(q.detach() - target)
+    c_upd, c_state = critic_opt.update(c_grads, c_state, c_params)
+    priorities = torch.abs(q - target)
     apply_updates(c_params, c_upd)
 
+    def actor_loss(anet, b):
+        return -torch.mean(critic_apply(params.critic, b["obs"],
+                                        actor_apply(anet, b["obs"])))
+
+    a_loss, a_grads = grad_sync.value_and_grad(actor_loss, params.actor,
+                                               batch)
     a_params = list(params.actor.parameters())
-    a_loss = -torch.mean(critic_apply(params.critic, batch["obs"],
-                                      actor_apply(params.actor,
-                                                  batch["obs"])))
-    a_upd, a_state = actor_opt.update(torch.autograd.grad(a_loss, a_params),
-                                      a_state, a_params)
+    a_upd, a_state = actor_opt.update(a_grads, a_state, a_params)
     apply_updates(a_params, a_upd)
 
     with torch.no_grad():

@@ -4,10 +4,14 @@ Gaussian-MLP policy, and token-level on a sequence-model policy.
 The MLP learner runs GAE, normalises advantages, then ``epochs`` passes of
 ``minibatches`` clipped-surrogate steps over contiguous slices of the
 flattened batch (no permutation, as in the reference), so it is
-deterministic given the trajectory. The LM learner (``lm_ppo_loss``,
-``make_lm_train_step``) takes one step on a batch of token positions,
-through ``models.transformer.forward`` on its plain paths. Gradients come
-from autograd; clipping and Adam are the hand-written ports in ``optim``.
+deterministic given the trajectory. Its gradients go through
+``distributed.grad_sync.value_and_grad``: plain autograd outside a sharded
+learner step, microbatched and averaged across shards inside one. The LM
+learner (``lm_ppo_loss``, ``make_lm_train_step``) takes one step on a
+batch of token positions, through ``models.transformer.forward`` on its
+plain paths, with ``torch.autograd.grad``, as the reference's LM path
+takes ``jax.value_and_grad``. Clipping and Adam are the hand-written ports
+in ``optim``.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from repro_torch.algos import gae as gae_mod
 from repro_torch.algos import staleness as staleness_mod
+from repro_torch.distributed import grad_sync
 from repro_torch.models import transformer
 from repro_torch.optim import apply_updates, clip_by_global_norm
 
@@ -80,8 +85,8 @@ def mlp_ppo_update(policy, opt_state, batch, cfg: PPOConfig, optimizer):
     metrics = []
     for i in range(cfg.minibatches):
         sl = {k: x[i * mb:(i + 1) * mb] for k, x in batch.items()}
-        loss, m = mlp_ppo_loss(policy, sl, cfg)
-        grads = torch.autograd.grad(loss, params)
+        (loss, m), grads = grad_sync.value_and_grad(
+            lambda p, b: mlp_ppo_loss(p, b, cfg), policy, sl, has_aux=True)
         grads, gnorm = clip_by_global_norm(grads, cfg.max_grad_norm)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         apply_updates(params, updates)

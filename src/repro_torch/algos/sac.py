@@ -7,9 +7,12 @@ The reference draws its noise from a PRNG key inside the update; here it
 is injected, as in the rest of the port: ``act(params, obs, noise)`` takes
 the standard-normal draw, and ``learn`` reads ``batch["noise_next"]`` and
 ``batch["noise_new"]`` (both ``(B, act_dim)``) where the reference splits
-``batch["rng"]``. Each loss takes ``torch.autograd.grad`` with respect to
-its own parameters only; the target and ``logp_new`` are detached where
-the reference stops their gradient. Updates are applied in place.
+``batch["rng"]``; a microbatch slices them with the batch. Each loss takes
+its gradient with respect to its own parameters only, through
+``distributed.grad_sync`` (``value_and_grad`` for the critic and the
+actor, ``sync`` for the temperature); the target and ``logp_new`` are
+detached where the reference stops their gradient. Updates are applied
+in place.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.algos.api import OffPolicyAlgorithm
+from repro_torch.distributed import grad_sync
 from repro_torch.models.mlp_policy import gaussian_logp, init_mlp_net, mlp_apply
 from repro_torch.optim import adam, apply_updates
 
@@ -111,42 +115,49 @@ def sac_update(params: SACParams, opt_states, batch: Dict[str, torch.Tensor],
     alpha = torch.exp(params.log_alpha.detach())
     critic, target_critic = params.critic, params.target_critic
 
-    # twin-critic regression against the entropy-regularised target
-    with torch.no_grad():
-        a_next, logp_next = sample_action(params.actor, batch["next_obs"],
-                                          batch["noise_next"])
-        q_next = torch.minimum(
-            q_apply(target_critic["q1"], batch["next_obs"], a_next),
-            q_apply(target_critic["q2"], batch["next_obs"], a_next))
-        target = batch["rewards"] + batch["discounts"] * (
-            q_next - alpha * logp_next)
-    w = batch.get("weights")
-    if w is None:
-        w = torch.ones_like(batch["rewards"])
-    q1 = q_apply(critic["q1"], batch["obs"], batch["actions"])
-    q2 = q_apply(critic["q2"], batch["obs"], batch["actions"])
-    c_loss = 0.5 * torch.mean(w * ((q1 - target) ** 2 + (q2 - target) ** 2))
+    # twin-critic regression against the entropy-regularised target (the
+    # target built inside the loss, so that a microbatch slices it too)
+    def critic_loss(cnet, b):
+        with torch.no_grad():
+            a_next, logp_next = sample_action(params.actor, b["next_obs"],
+                                              b["noise_next"])
+            q_next = torch.minimum(
+                q_apply(target_critic["q1"], b["next_obs"], a_next),
+                q_apply(target_critic["q2"], b["next_obs"], a_next))
+            target = b["rewards"] + b["discounts"] * (
+                q_next - alpha * logp_next)
+        w = b.get("weights")
+        if w is None:
+            w = torch.ones_like(b["rewards"])
+        q1 = q_apply(cnet["q1"], b["obs"], b["actions"])
+        q2 = q_apply(cnet["q2"], b["obs"], b["actions"])
+        loss = 0.5 * torch.mean(w * ((q1 - target) ** 2 + (q2 - target) ** 2))
+        return loss, (q1.detach(), q2.detach(), target)
+
+    (c_loss, (q1, q2, target)), c_grads = grad_sync.value_and_grad(
+        critic_loss, critic, batch, has_aux=True)
     c_params = list(critic.parameters())
-    c_upd, c_state = critic_opt.update(torch.autograd.grad(c_loss, c_params),
-                                       c_state, c_params)
+    c_upd, c_state = critic_opt.update(c_grads, c_state, c_params)
     apply_updates(c_params, c_upd)
 
     # reparameterised actor step against the fresh critic
+    def actor_loss(anet, b):
+        a_new, logp = sample_action(anet, b["obs"], b["noise_new"])
+        q_min = torch.minimum(q_apply(critic["q1"], b["obs"], a_new),
+                              q_apply(critic["q2"], b["obs"], a_new))
+        return torch.mean(alpha * logp - q_min), logp.detach()
+
+    (a_loss, logp_new), a_grads = grad_sync.value_and_grad(
+        actor_loss, params.actor, batch, has_aux=True)
     a_params = list(params.actor.parameters())
-    a_new, logp_new = sample_action(params.actor, batch["obs"],
-                                    batch["noise_new"])
-    q_min = torch.minimum(q_apply(critic["q1"], batch["obs"], a_new),
-                          q_apply(critic["q2"], batch["obs"], a_new))
-    a_loss = torch.mean(alpha * logp_new - q_min)
-    a_upd, a_state = actor_opt.update(torch.autograd.grad(a_loss, a_params),
-                                      a_state, a_params)
+    a_upd, a_state = actor_opt.update(a_grads, a_state, a_params)
     apply_updates(a_params, a_upd)
 
     # temperature: pull the entropy toward -act_dim
     log_alpha = params.log_alpha
-    al_loss = -torch.mean(log_alpha * (logp_new.detach() + target_entropy))
-    al_upd, al_state = alpha_opt.update(
-        torch.autograd.grad(al_loss, [log_alpha]), al_state, [log_alpha])
+    al_loss = -torch.mean(log_alpha * (logp_new + target_entropy))
+    al_grads = grad_sync.sync(torch.autograd.grad(al_loss, [log_alpha]))
+    al_upd, al_state = alpha_opt.update(al_grads, al_state, [log_alpha])
     apply_updates([log_alpha], al_upd)
 
     with torch.no_grad():

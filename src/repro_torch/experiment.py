@@ -17,9 +17,13 @@ Ported so far: runtimes ``sync``, ``async`` and ``fused``, backends
 ``num_samplers × global_batch`` or ``env_batch`` collection; staleness
 correction, fault injection and elastic worker fleets; the overlap schedule
 (``schedule.overlap``: collect k+1 under learn k) on the sync and fused
-runtimes. Anything else is rejected with a message naming ROADMAP.md,
-never ignored: overlap over a learner mesh too (the reference's
-``offset=1`` mesh and ``pin_params``), with the sharded learner.
+runtimes; the data-parallel learner (``learner_devices``,
+``learner_microbatches``: ``distributed/learner.py``), microbatched on
+every runtime and over D devices on the sync and async ones. Anything
+else is rejected with a message naming ROADMAP.md, never ignored: fsdp,
+learner pods, the sharded backend, D > 1 under the fused runtime and the
+overlap schedule over a learner mesh (the reference's ``offset=1`` mesh
+and ``pin_params``).
 
 The actor plane: ``backend="process"`` (``schedule.num_workers`` workers,
 default ``num_samplers``) collects with worker processes, each rebuilt from
@@ -66,8 +70,10 @@ from repro_torch.core.orchestrator import (
     IterationLog,
     SyncRunner,
 )
+from repro_torch.distributed.learner import ShardedLearner
 from repro_torch.envs.vector import VectorEnv
 from repro_torch.kernels.env_step import ref as env_ref
+from repro_torch.launch.mesh import make_learner_mesh
 
 RUNTIMES = ("sync", "async", "fused")
 
@@ -229,13 +235,43 @@ def _validate(spec: ExperimentSpec) -> None:
             "runtime's free-running samplers already overlap collect "
             "with learn by construction — drop overlap or use "
             "runtime='sync'")
-    if int(sched.learner_devices or 1) > 1 or sched.learner_microbatches > 1:
-        raise _not_ported(
-            "the sharded learner (learner_devices / learner_microbatches)"
-            + (", and the overlap schedule over a learner mesh"
-               if sched.overlap else ""))
+    # what of the distributed learner is not ported (ROADMAP.md item 10d),
+    # refused before the device count and _validate_learner's ValueErrors
+    devices = int(sched.learner_devices or 1)
     if sched.fsdp or sched.learner_pods > 1:
-        raise _not_ported("fsdp / learner_pods")
+        raise _not_ported("fsdp / learner_pods (item 10d)")
+    if devices > 1 and spec.runtime == "fused":
+        raise _not_ported(
+            "learner_devices > 1 under runtime 'fused' (the shard threads "
+            "cannot share one graph capture; item 10d)")
+    if devices > 1 and sched.overlap:
+        raise _not_ported(
+            "the overlap schedule over a learner mesh (the reference's "
+            "offset=1 mesh and pin_params; item 10d)")
+
+
+def _validate_learner(spec: ExperimentSpec, algo, sched: Schedule,
+                      devices: int, vector: bool) -> None:
+    """The reference's checks of the data-parallel learner, made before
+    its mesh is built (``ValueError``)."""
+    if devices <= 1:
+        return
+    if not getattr(algo, "shardable", False):
+        raise ValueError(
+            f"algo {spec.algo!r} does not support learner_devices > 1 "
+            f"(shardable=False — its gradients bypass grad_sync)")
+    if spec.runtime == "async":
+        n = (sched.num_workers or sched.num_samplers
+             ) if spec.backend == "process" else sched.num_samplers
+        batch = sched.min_batches_per_update * (sched.global_batch // n)
+    elif vector:
+        batch = sched.env_batch
+    else:
+        batch = sched.global_batch
+    if batch % devices:
+        raise ValueError(
+            f"the learner-side batch ({batch}) must divide evenly over "
+            f"learner_devices={devices}")
 
 
 def _resolve_buffer(spec: ExperimentSpec, algo):
@@ -267,7 +303,7 @@ def _resolve_buffer(spec: ExperimentSpec, algo):
     return buffer
 
 
-def build(spec: ExperimentSpec, device=None):
+def build(spec: ExperimentSpec, device=None, mesh=None):
     """Resolve a spec into a runner on ``device`` (without driving it): a
     ``SyncRunner``, an ``AsyncOrchestrator`` under ``runtime="async"``, or
     a ``FusedRunner`` under ``runtime="fused"``.
@@ -278,6 +314,11 @@ def build(spec: ExperimentSpec, device=None):
     backend), or one carry seeded ``seed`` for ``env_batch`` collection and
     for the fused runtime, as the reference derives its keys; the plane's
     generator on ``device`` seeded ``seed + _PLANE_SEED_TAG``.
+
+    ``learner_devices > 1`` or ``learner_microbatches > 1`` selects the
+    data-parallel learner (``distributed.learner.ShardedLearner``) over
+    ``make_learner_mesh(learner_devices)``, or over ``mesh`` (a list of
+    ``learner_devices`` devices, which may repeat one) where it is given.
     """
     _validate(spec)
     device = resolve_device(device)
@@ -298,7 +339,25 @@ def build(spec: ExperimentSpec, device=None):
     kernels_mod.set_kernel_mode(spec.kernels)
     params, opt_state = algo.init(
         torch.Generator().manual_seed(sched.seed), env, device)
-    train_step = make_train_step(algo, buffer)
+    devices = int(sched.learner_devices or 1)
+    micro = int(sched.learner_microbatches or 1)
+    _validate_learner(spec, algo, sched, devices, vector)
+    if mesh is not None and len(mesh) != devices:
+        raise ValueError(f"a learner mesh of {len(mesh)} devices for "
+                         f"learner_devices={devices}")
+    if devices > 1 or micro > 1:
+        if mesh is None and devices > 1:
+            mesh = make_learner_mesh(devices, device=device)
+        learner = ShardedLearner(algo, buffer, num_devices=devices,
+                                 microbatches=micro, mesh=mesh)
+        # the (sharded) wrapper allocates the plane below: per-shard rings
+        # and trees on the mesh's devices
+        buffer = learner.buffer
+        train_step = learner.train_step
+    else:
+        # learner_devices in (None, 1): the single-device composition,
+        # untouched (the bit-for-bit guarantee)
+        train_step = make_train_step(algo, buffer)
     example = (algo.transition_example(env, device)
                if buffer.kind == "transitions" else None)
     plane_generator = torch.Generator(device=device)
@@ -394,11 +453,12 @@ def _build_process(spec: ExperimentSpec, device, seeds, per: int,
 
 
 def run(spec: ExperimentSpec, iterations: Optional[int] = None,
-        device=None) -> ExperimentResult:
-    """Build the spec's runner on ``device`` and drive it; the runner is
-    closed in a ``finally`` (sampler threads, worker processes and shared
-    memory are released even when the run raises)."""
-    runner = build(spec, device=device)
+        device=None, mesh=None) -> ExperimentResult:
+    """Build the spec's runner on ``device`` (and the learner on ``mesh``,
+    as ``build`` takes it) and drive it; the runner is closed in a
+    ``finally`` (sampler threads, worker processes and shared memory are
+    released even when the run raises)."""
+    runner = build(spec, device=device, mesh=mesh)
     try:
         logs = runner.run(iterations if iterations is not None
                           else spec.schedule.iterations)

@@ -11,7 +11,9 @@ CUDA tree of the size ``ops.update_scratch_size`` gives (one int32 per leaf,
 then the kernels' flags and counter), on a CPU tree one per leaf, unused.
 
 ``sumtree_update_ref`` writes into the tree in place, as the CUDA kernel
-does. ``sumtree_update_masked`` (the sharded replay's form) is not ported.
+does. ``sumtree_update_masked`` is the sharded replay's form; it has no
+kernel of its own in either package (``distributed/replay_sharded.py``
+runs it through the update kernel).
 """
 from __future__ import annotations
 
@@ -161,3 +163,16 @@ def sumtree_update_ref(tree: SumTree, idx: torch.Tensor,
         hi[parent] = lo[2 * parent] + lo[2 * parent + 1]
         child = parent
     return tree
+
+
+def sumtree_update_masked(tree: SumTree, idx: torch.Tensor,
+                          leaf_values: torch.Tensor,
+                          mask: torch.Tensor) -> SumTree:
+    """``sumtree_update_ref`` that applies only the rows where ``mask`` is
+    True: the sharded replay's form, where every shard sees the whole
+    priority batch but owns a slice of the leaves. A masked-out row's
+    index becomes ``capacity``, which the update drops, so with ``mask``
+    all True this is ``sumtree_update_ref`` bit for bit; in place."""
+    idx = torch.where(mask.reshape(-1), idx.reshape(-1).to(torch.int64),
+                      tree.capacity)
+    return sumtree_update_ref(tree, idx, leaf_values)

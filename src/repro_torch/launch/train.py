@@ -29,6 +29,9 @@ Usage:
       --backend {inline,threaded,process,fused} --overlap [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --env pendulum \
       --algo ppo --iterations 5 --ckpt-dir /tmp/ckpt [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
+      --algo {ppo,sac,ddpg} [--learner-devices 2] \
+      [--learner-microbatches 2] [--device cpu]
 
 ``--backend fused`` is the fused runtime: one carry of ``--global-batch``
 envs (or ``--env-batch``), each collect -> learn iteration one CUDA-graph
@@ -52,6 +55,14 @@ params, never the optimizer state) with ``{"mode": "rl", "spec": ...}`` as
 metadata, in the format both packages read: ``python -m
 repro_torch.launch.serve_policy --ckpt D`` serves it, and so does the
 reference's ``repro.launch.serve_policy``.
+
+``--learner-devices D`` trains data-parallel over D devices (the sync and
+async runtimes; D lockstep shard threads of this process, gradients
+averaged across them, a sharded replay for SAC and DDPG), and
+``--learner-microbatches M`` accumulates each loss's gradient over M
+slices of its batch (every runtime). On the CPU the environment variable
+``REPRO_TORCH_HOST_DEVICES`` sets how many learner devices may be asked
+for (default 1); on the card, ``torch.cuda.device_count()``.
 
 ``--overlap`` (sync and fused runtimes): after two serial iterations,
 iteration k+1's collect runs while iteration k's learn does, with the
@@ -130,6 +141,8 @@ def spec_from_args(args) -> ExperimentSpec:
             env_batch=args.env_batch,
             chunk=args.chunk,
             overlap=args.overlap,
+            learner_devices=args.learner_devices,
+            learner_microbatches=args.learner_microbatches,
             max_respawns=args.max_respawns,
             min_workers=args.min_workers,
             max_workers=args.max_workers,
@@ -267,6 +280,15 @@ def main(argv=None):
                     help="'cuda' (or 'auto', 'pallas'): the CUDA kernels "
                          "on a CUDA device; "
                          "'ref': the plain PyTorch versions")
+    ap.add_argument("--learner-devices", type=int, default=None,
+                    help="train data-parallel over D devices: D lockstep "
+                         "shard threads, gradients averaged across them "
+                         "(1/unset: the single-device path, bit for bit; "
+                         "on the CPU, REPRO_TORCH_HOST_DEVICES sets how "
+                         "many may be asked for)")
+    ap.add_argument("--learner-microbatches", type=int, default=1,
+                    help="gradient-accumulation slices per (per-shard) "
+                         "learner batch")
     ap.add_argument("--overlap", action="store_true",
                     help="double-buffered pipeline: dispatch iteration "
                          "k's learn and run iteration k+1's collect "

@@ -110,6 +110,22 @@ def test_backend_equals_inline_bit_for_bit(runs, algo, backend):
                    for k in want.storage)
 
 
+def test_process_backend_under_the_sharded_learner(monkeypatch):
+    """The process backend with the data-parallel learner (D = 2 shard
+    threads on two CPU learner devices, M = 2 microbatches), once refused
+    by name: equal to the inline run of the same learner, bit for bit."""
+    monkeypatch.setenv("REPRO_TORCH_HOST_DEVICES", "2")
+    spec = dataclasses.replace(PPO, schedule=dataclasses.replace(
+        PPO.schedule, learner_devices=2, learner_microbatches=2))
+    inline = _run_recorded(spec)
+    process = _run_recorded(dataclasses.replace(
+        spec, backend="process", schedule=dataclasses.replace(
+            spec.schedule, num_samplers=4, num_workers=2)))
+    _assert_runs_equal(process, inline)
+    assert process[0]._train_step.__self__.num_shards == 2
+    assert _walle_blocks() == []
+
+
 def test_num_workers_overrides_num_samplers(runs):
     runner, logs, _ = runs["ppo", "process"]
     assert runner.backend.num_samplers == 2

@@ -164,17 +164,24 @@ def test_default_device_without_cuda_raises(monkeypatch):
 @pytest.mark.parametrize("change", [
     dict(runtime="fused",
          schedule=Schedule(overlap=True, learner_devices=2, fsdp=True)),
+    # (async threads over D = 2, the process backend and the fused runtime
+    # at M = 2, and D = 2 on the sync runtime are accepted since the
+    # data-parallel learner: tests/test_torch_learner_plane.py and
+    # tests/test_torch_process_backend.py; each case here now names
+    # another choice that waits for ROADMAP.md item 10d)
     dict(runtime="async", backend="threaded",
-         schedule=Schedule(learner_devices=2)),
-    dict(backend="process", schedule=Schedule(learner_microbatches=2)),
+         schedule=Schedule(learner_devices=2, learner_pods=2)),
+    dict(backend="process",
+         schedule=Schedule(learner_microbatches=2, fsdp=True)),
     dict(backend="threaded", schedule=Schedule(learner_pods=2)),
     dict(backend="sharded"),
     dict(schedule=Schedule(fsdp=True)),
     dict(runtime="async", backend="process", schedule=Schedule(fsdp=True)),
     # (aux_coef, refused here until the LM training slice, is accepted
     # now: tests/test_torch_lm_cli.py)
-    dict(runtime="fused", schedule=Schedule(learner_microbatches=2)),
-    dict(schedule=Schedule(learner_devices=2)),
+    dict(runtime="fused",
+         schedule=Schedule(learner_microbatches=2, learner_devices=2)),
+    dict(backend="sharded", schedule=Schedule(learner_devices=2)),
     # the reference's overlap over a learner mesh (offset=1, pin_params)
     dict(schedule=Schedule(overlap=True, learner_devices=2)),
 ])
@@ -182,6 +189,34 @@ def test_unported_choices_are_rejected(change):
     spec = ExperimentSpec(**{"env": "cheetah", **change})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build(spec, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(runtime="fused", schedule=Schedule(learner_microbatches=2)),
+    dict(schedule=Schedule(learner_microbatches=2)),
+    dict(runtime="async", backend="threaded",
+         schedule=Schedule(learner_microbatches=2)),
+])
+def test_learner_choices_once_refused_now_run(change):
+    """What ``test_unported_choices_are_rejected`` refused before the
+    data-parallel learner, on the CPU's one learner device: two logs."""
+    sched = dataclasses.replace(change["schedule"], num_samplers=2,
+                                global_batch=4, horizon=8)
+    spec = ExperimentSpec(**{"env": "cheetah", "model": {"hidden": 16},
+                             **change, "schedule": sched})
+    logs = run(spec, iterations=2, device="cpu").logs
+    assert len(logs) == 2
+    assert all(math.isfinite(lg.mean_return) for lg in logs)
+
+
+def test_learner_devices_beyond_the_host_raise_the_mesh_error(monkeypatch):
+    """D = 2 on the CPU's one learner device: the reference's mesh
+    ``ValueError``, naming the count, after every refusal by name."""
+    monkeypatch.delenv("REPRO_TORCH_HOST_DEVICES", raising=False)
+    with pytest.raises(ValueError, match="learner_devices=2"):
+        build(ExperimentSpec(env="cheetah",
+                             schedule=Schedule(learner_devices=2)),
+              device="cpu")
 
 
 @pytest.mark.parametrize("change", [
@@ -232,6 +267,9 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the learner plane's modules are scanned too
+    assert {"grad_sync.py", "learner.py", "replay_sharded.py",
+            "mesh.py"} <= {f.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]

@@ -89,7 +89,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
    summing to the root, GAE and the four replay kernels at the per-shard
    shapes bit for bit; ``--learner-devices 2`` on one card raising the
    mesh's ``ValueError``; GAE and the replay kernels launched once per
-   shard per call; a ``{"learner": ...}`` line. Then envs with
+   shard per call; a ``{"learner": ...}`` line. Then FSDP, learner pods,
+   the sharded backend and overlap over a learner mesh (``sharding``,
+   ``sharding_runs``) at the main path's width (PPO cheetah, 10 × 16 ×
+   125, 3 iterations): FSDP over ``[cuda:0, cuda:0]``, each learn within
+   rtol 1e-4, atol 1e-5 of the replicated D = 2 learner on the same
+   inputs, the final weights within 1e-4 of replicated D = 2's (T 125) and
+   of D = 1's (T 128), each shard's bytes equal to what ``fsdp_layout``
+   predicts (also at hidden 512, every leaf of 1 MiB or more sharded);
+   SAC prioritized (2^20 slots) under FSDP within 0.05 of the main path's
+   run; pods 2 × 2 over four entries of ``cuda:0`` with FSDP within 1e-4
+   of replicated D = 4 (T 125) and D = 1 (T 128); the sharded backend
+   through the CLI on the one card and over ``[cuda:0, cuda:0]``, its
+   trajectory over ten entries of ``cuda:0`` bit for bit the inline
+   backend's, over one device the first step's actions within 1e-5 (the
+   largest difference over the sweep printed with its leaf), 125 × D
+   cheetah-step launches a sweep against inline's 1,250, its collect
+   seconds beside inline's; overlap with D = 2 and FSDP (6 iterations:
+   staleness 0, 0 then 1 from the fourth log, saved seconds >= 0 and > 0
+   on a pipelined iteration, within 0.05 of the serial run); ``--fsdp``
+   on one learner device and ``--backend fused --learner-devices 2``
+   raising the reference's ``ValueError`` and the ``NotImplementedError``
+   naming item 10f; every run's launches equal to those the code
+   predicts; a ``{"sharding": ...}`` line. Then envs with
    half-precision obs and rewards (``env_kwargs={"dtype": ...}``): PPO
    cheetah in bfloat16 at 10 × 16 × 125 (3 iterations) and fused at one
    carry of 160 × 125 (5 iterations), SAC cheetah prioritized (2^20
@@ -2509,6 +2531,8 @@ def clone_state(x):
             return copy.deepcopy(x)
     if isinstance(x, torch.Tensor):
         return x.detach().clone()
+    if hasattr(x, "moment_dims"):        # an FSDP learner's sharded state
+        return clone_state(x.full())
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*(clone_state(v) for v in x))
     if isinstance(x, (list, tuple)):
@@ -2873,6 +2897,337 @@ def learner_runs(cli, counted, runs, check_logs, zero_counts, device,
     report["launches_checked"] = sorted(
         k for k in runs if k.startswith("learner "))
     log(json.dumps({"learner": report}))
+    return report
+
+
+def sharding_runs(cli, counted, runs, check_logs, zero_counts, device,
+                  sac_inline):
+    """Slice 18: FSDP, learner pods, the sharded backend and overlap over
+    a learner mesh, at the main path's width (PPO cheetah, walle-mlp 2 ×
+    64, 10 samplers × 16 envs × 125 steps, 3 iterations), every mesh entry
+    ``cuda:0``. ``sac_inline`` is the main path's SAC prioritized run.
+
+    (a) FSDP over ``[cuda:0, cuda:0]``: each learn within rtol 1e-4, atol
+    1e-5 of the replicated D = 2 learner on copies of the same params,
+    optimizer state and trajectory (at T 125 a shard's minibatch ends
+    inside a time step, so D = 2 partitions the samples otherwise than
+    D = 1; the replicated D = 2 learner partitions them as FSDP does); the
+    final weights within 1e-4 of replicated D = 2's, and at T 128 of
+    D = 1's (``tests/test_fsdp_pipeline.py``'s bound); each shard's stored
+    bytes (params, moments, step) equal to ``fsdp_layout``'s prediction,
+    also at hidden 512, where every leaf of 1 MiB or more must be sharded;
+    SAC prioritized (2^20 slots, batch 256) under FSDP within 0.05 of the
+    main path's run. (b) ``learner_pods=2`` over four entries of
+    ``cuda:0`` with FSDP: within 1e-4 of replicated D = 4's (T 125) and of
+    D = 1's (T 128). (c) the sharded backend: ``--backend sharded``
+    through the CLI (the card's one device), then ``make_backend`` over
+    ``[cuda:0, cuda:0]``, ten entries of ``cuda:0`` (one sampler's 16 envs
+    a shard: bit for bit the inline backend's) and one device (160 envs a
+    launch: the first step's actions within 1e-5, the largest difference
+    over the sweep logged with its leaf), each against the inline backend
+    from the same carries; cheetah-step launches 125 × D a sweep against
+    inline's 1,250; the collect seconds of each beside inline's. (d)
+    overlap, D = 2 with FSDP on ``[cuda:0, cuda:0]``, 6 iterations:
+    staleness 0 on the first two logs and 1 from the fourth, saved seconds
+    >= 0 and > 0 on a pipelined iteration, final weights within 0.05 of
+    the serial run's. (e) ``--fsdp`` on one learner device: the
+    reference's ``ValueError``; ``--backend fused --learner-devices 2``:
+    the ``NotImplementedError`` naming ROADMAP.md item 10f. (f) every
+    run's launches equal those the code predicts: the env step T × N a
+    collect (T × D through the sharded backend), GAE and each replay
+    kernel once per shard per call. Prints and returns the ``sharding``
+    report (``device``: the card's name and power limit, beside every
+    time in it)."""
+    from repro_torch import envs, registry
+    from repro_torch.core import sampler
+    from repro_torch.core.backends import InlineBackend, make_backend
+    from repro_torch.data.buffers import FifoBuffer
+    from repro_torch.distributed.learner import (ShardedLearner,
+                                                 ShardedOptState)
+    from repro_torch.experiment import ExperimentSpec, Schedule, run
+    n, per, h = MAIN_SAMPLERS
+    B, iters, updates = n * per, 3, 4
+    cuda = torch.device("cuda", 0)
+    report = {"device": device, "runs": {}}
+
+    def seconds(label, logs):
+        logs = [lg if isinstance(lg, dict) else lg.as_dict() for lg in logs]
+        report["runs"][label] = {
+            "learn_s": [lg["learn_time"] for lg in logs],
+            "collect_s": [lg["collect_time"] for lg in logs],
+            "launches": {k: v for k, v in runs[label].items() if v}}
+
+    def spec(horizon=h, **sched):
+        return ExperimentSpec(env="cheetah", algo="ppo", schedule=Schedule(
+            num_samplers=n, global_batch=B, horizon=horizon,
+            iterations=sched.pop("iterations", iters), **sched))
+
+    def ppo_run(label, sp, mesh=None, record=False):
+        d = int(sp.schedule.learner_devices or 1)
+        with learner_steps() as rec:
+            res = counted(label, lambda: run(sp, mesh=mesh))
+        check_logs(label, res.logs, sp.schedule.iterations,
+                   B * sp.schedule.horizon)
+        assert runs[label] == zero_counts(
+            cheetah_step=sp.schedule.iterations * n * sp.schedule.horizon,
+            gae=d * sp.schedule.iterations), runs[label]
+        seconds(label, res.logs)
+        weights = [p.detach().clone() for p in res.params.parameters()]
+        return res, weights, (rec if record else None)
+
+    def predicted_bytes(learner, params):
+        """Each shard's stored bytes as ``fsdp_layout`` lays them out: a
+        sharded leaf and its two moments at 1/D, the rest whole, and the
+        4-byte step counter."""
+        table = learner.fsdp_layout(params)
+        from repro_torch.distributed import sharding
+        total = 4
+        for name, p in params.named_parameters():
+            key = (sharding.reference_leaf(name, p.shape)[0][-1],
+                   tuple(p.shape))
+            share = learner.num_shards if key in table else 1
+            total += 3 * p.numel() * p.element_size() // share
+        return total
+
+    def storage(label, res, d):
+        learner = res.runner._train_step.__self__
+        assert learner.fsdp and isinstance(res.runner.opt_state,
+                                           ShardedOptState)
+        want = predicted_bytes(learner, res.params)
+        got = learner.shard_bytes()
+        full = sum(3 * p.numel() * p.element_size()
+                   for p in res.params.parameters()) + 4
+        assert got == [want] * d, (label, got, want)
+        shapes = sorted(shape for _, shape in learner._fsdp_info.full_table)
+        log(f"  {label}: each shard stores {want} bytes of params, moments "
+            f"and step against {full} replicated (sharded: the leaves of "
+            f"shape {shapes})")
+        return {"shard_bytes": got, "replicated_bytes": full}
+
+    def learns_against_replicated(label, rec, d):
+        """Each recorded FSDP learn against a replicated learner over the
+        same mesh, from copies of the same inputs."""
+        worst = 0.0
+        for learner, (params, opt_state, traj), got in rec:
+            assert learner.fsdp
+            rep = ShardedLearner(learner.algo, FifoBuffer(),
+                                 mesh=[cuda] * d)
+            want, _, _, _ = rep.train_step(
+                params, opt_state,
+                (None, torch.Generator(device=cuda)), traj)
+            for a, b in zip(got, want.parameters()):
+                b = b.detach()
+                worst = max(worst, float((a - b).abs().max()))
+                assert torch.allclose(a, b, rtol=1e-4, atol=1e-5), (
+                    f"{label}: a learn differs from the replicated "
+                    f"learner's by {float((a - b).abs().max())}")
+        log(f"  {label}: {len(rec)} learns within rtol 1e-4, atol 1e-5 of "
+            f"the replicated D = {d} learner on the same inputs: max "
+            f"|diff| {worst:.3g}")
+        return worst
+
+    def diff(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    # (a) FSDP over [cuda:0, cuda:0]
+    two = [cuda] * 2
+    _, repl2, _ = ppo_run("sharding ppo D=2 replicated", spec(
+        learner_devices=2), mesh=two)
+    label = "sharding ppo D=2 fsdp"
+    res, fsdp2, rec = ppo_run(label, spec(learner_devices=2, fsdp=True),
+                              mesh=two, record=True)
+    report["fsdp_d2_learn_max_diff"] = learns_against_replicated(label, rec,
+                                                                 2)
+    del rec
+    report["fsdp_d2_vs_replicated_d2"] = diff(fsdp2, repl2)
+    assert report["fsdp_d2_vs_replicated_d2"] < 1e-4
+    report["fsdp_d2_storage"] = storage(label, res, 2)
+    del res
+    h2 = 128
+    _, one128, _ = ppo_run(f"sharding ppo T={h2} D=1", spec(horizon=h2))
+    _, fsdp128, _ = ppo_run(f"sharding ppo T={h2} D=2 fsdp", spec(
+        horizon=h2, learner_devices=2, fsdp=True), mesh=two)
+    report["fsdp_d2_t128_vs_d1"] = diff(fsdp128, one128)
+    assert report["fsdp_d2_t128_vs_d1"] < 1e-4
+    log(f"  fsdp D=2: final weights {report['fsdp_d2_vs_replicated_d2']:.3g}"
+        f" from replicated D=2 (T {h}), {report['fsdp_d2_t128_vs_d1']:.3g} "
+        f"from D=1 (T {h2}); bound 1e-4")
+    label = "sharding ppo hidden 512 D=2 fsdp"
+    big = ExperimentSpec(env="cheetah", algo="ppo", model={"hidden": 512},
+                         schedule=Schedule(num_samplers=n, global_batch=B,
+                                           horizon=h, iterations=1,
+                                           learner_devices=2, fsdp=True))
+    res = counted(label, lambda: run(big, mesh=two))
+    check_logs(label, res.logs, 1, B * h)
+    assert runs[label] == zero_counts(cheetah_step=n * h, gae=2)
+    seconds(label, res.logs)
+    report["fsdp_hidden512_storage"] = storage(label, res, 2)
+    learner = res.runner._train_step.__self__
+    for name, p in res.params.named_parameters():
+        if p.numel() * p.element_size() >= 1 << 20:
+            assert any(q.shape != p.shape for nm, q in
+                       learner._params[0].named_parameters()
+                       if nm == name), f"{name} stored whole"
+    del res, learner
+    label = "sharding sac cheetah prioritized D=2 fsdp"
+    sac = ExperimentSpec(env="cheetah", algo="sac", buffer="prioritized",
+                         buffer_kwargs={"capacity": CAP, "batch_size": 256},
+                         schedule=Schedule(num_samplers=n, global_batch=B,
+                                           horizon=h, iterations=iters,
+                                           learner_devices=2, fsdp=True))
+    res = counted(label, lambda: run(sac, mesh=two))
+    check_logs(label, res.logs, iters, B * h)
+    assert runs[label] == zero_counts(
+        cheetah_step=iters * n * h, ring_insert=2 * iters,
+        ring_gather=2 * iters * updates, sumtree_find=2 * iters * updates,
+        sumtree_update=2 * iters * (1 + updates)), runs[label]
+    seconds(label, res.logs)
+    report["fsdp_sac_d2_vs_d1"] = max_param_diff(res.params,
+                                                 sac_inline["tensors"])
+    assert report["fsdp_sac_d2_vs_d1"] < 0.05
+    log(f"  {label}: final weights {report['fsdp_sac_d2_vs_d1']:.3g} from "
+        f"the main path's D = 1 run (bound 0.05)")
+    del res
+
+    # (b) learner pods 2 x 2 over four entries of cuda:0
+    four = [cuda] * 4
+    _, repl4, _ = ppo_run("sharding ppo D=4 replicated", spec(
+        learner_devices=4), mesh=four)
+    label = "sharding ppo D=4 pods=2 fsdp"
+    res, pods4, _ = ppo_run(label, spec(learner_devices=4, learner_pods=2,
+                                        fsdp=True), mesh=four)
+    mesh = res.runner._train_step.__self__.mesh
+    assert mesh.axis_names == ("pod", "data", "model") and mesh.shape == {
+        "pod": 2, "data": 2, "model": 1}
+    report["pods_storage"] = storage(label, res, 4)
+    del res
+    _, pods128, _ = ppo_run(f"sharding ppo T={h2} D=4 pods=2 fsdp", spec(
+        horizon=h2, learner_devices=4, learner_pods=2, fsdp=True),
+        mesh=four)
+    report["pods_vs_replicated_d4"] = diff(pods4, repl4)
+    report["pods_t128_vs_d1"] = diff(pods128, one128)
+    assert report["pods_vs_replicated_d4"] < 1e-4
+    assert report["pods_t128_vs_d1"] < 1e-4
+    log(f"  pods 2 x 2 fsdp: final weights "
+        f"{report['pods_vs_replicated_d4']:.3g} from replicated D=4 (T {h}),"
+        f" {report['pods_t128_vs_d1']:.3g} from D=1 (T {h2}); bound 1e-4")
+
+    # (c) the sharded backend
+    label = "sharding ppo --backend sharded (one device)"
+    logs = counted(label, lambda: cli(
+        ["--env", "cheetah", "--algo", "ppo", "--backend", "sharded",
+         "--num-samplers", str(n), "--global-batch", str(B), "--horizon",
+         str(h), "--iterations", str(iters)]))
+    check_logs(label, logs, iters, B * h)
+    assert runs[label] == zero_counts(cheetah_step=iters * h, gae=iters)
+    assert cli.result.runner.backend.num_samplers == 1
+    seconds(label, logs)
+    env = envs.make("cheetah")
+    algo = registry.make("algo", "ppo")
+    params, _ = algo.init(torch.Generator().manual_seed(0), env, cuda)
+
+    sweeps = 3
+
+    def sweep(label, kind, mesh):
+        """Three collects from fresh carries (sampler i seeded i), their
+        trajectories and wall seconds; the launches of all three counted
+        as one run."""
+        carries = [sampler.init_env_carry(env, i, per, cuda)
+                   for i in range(n)]
+        backend = make_backend(kind, algo.make_rollout(env, h), carries,
+                               env=env, horizon=h, mesh=mesh, hooks=algo)
+        trajs, walls = [], []
+
+        def collects():
+            for _ in range(sweeps):
+                t0 = time.perf_counter()
+                traj, _ = backend.collect(params)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                trajs.append({k: v.clone() for k, v in traj.items()})
+
+        with backend:
+            counted(label, collects)
+        return trajs, walls, runs[label]
+
+    backend_report = {}
+    want, walls, counts = sweep("sharding inline backend sweeps", "inline",
+                                None)
+    assert counts == zero_counts(cheetah_step=sweeps * n * h), counts
+    backend_report["inline"] = {"collect_s": walls,
+                                "cheetah_step_per_sweep": n * h}
+    for d in (n, 2, 1):
+        got, walls, counts = sweep(f"sharding sharded backend D={d}",
+                                   "sharded", [cuda] * d)
+        assert counts == zero_counts(cheetah_step=sweeps * d * h), counts
+        worst, leaf = 0.0, None
+        for a, b in zip(got, want):
+            assert sorted(a) == sorted(b)
+            for k in b:
+                assert a[k].shape == b[k].shape and a[k].dtype == b[k].dtype
+                e = float((a[k].float() - b[k].float()).abs().max())
+                if e > worst:
+                    worst, leaf = e, k
+        if d == n:
+            assert worst == 0.0, (d, worst, leaf)
+        first = float((got[0]["actions"][0] - want[0]["actions"][0]).abs()
+                      .max())
+        assert first <= 1e-5, (d, first)
+        backend_report[f"D={d}"] = {
+            "collect_s": walls, "cheetah_step_per_sweep": d * h,
+            "first_step_actions_max_diff": first,
+            "trajectory_max_diff": worst, "trajectory_max_diff_leaf": leaf}
+        log(f"  sharded backend D={d}: {d * h} cheetah-step "
+            f"launches a sweep (inline {n * h}); collect s "
+            f"{[round(w, 4) for w in walls]} (inline "
+            f"{[round(w, 4) for w in backend_report['inline']['collect_s']]}"
+            f"); first step's actions {first:.3g} from inline's, largest "
+            f"difference over {len(got)} sweeps {worst:.3g} ({leaf})")
+    report["sharded_backend"] = backend_report
+
+    # (d) overlap over a two-shard FSDP mesh
+    _, serial, _ = ppo_run("sharding ppo 6 iterations serial",
+                           spec(iterations=6))
+    label = "sharding ppo D=2 fsdp --overlap"
+    with recording(InlineBackend) as trajs:
+        res, over, _ = ppo_run(label, spec(iterations=6, learner_devices=2,
+                                           fsdp=True, overlap=True),
+                               mesh=two)
+    logs = [lg.as_dict() for lg in res.logs]
+    assert [lg["staleness"] for lg in logs[:2]] == [0.0, 0.0], logs
+    assert all(lg["staleness"] == 1.0 for lg in logs[3:]), logs
+    assert all(lg["overlap_saved_s"] >= 0.0 for lg in logs)
+    assert any(lg["overlap_saved_s"] > 0.0 for lg in logs[2:-1]), logs
+    report["overlap"] = {
+        "staleness": [lg["staleness"] for lg in logs],
+        "overlap_saved_s": [lg["overlap_saved_s"] for lg in logs],
+        "collect_wall_s": trajs.walls,
+        "final_vs_serial": diff(over, serial)}
+    assert report["overlap"]["final_vs_serial"] < 0.05
+    log(f"  {label}: staleness {report['overlap']['staleness']}, saved s "
+        f"{report['overlap']['overlap_saved_s']}, final weights "
+        f"{report['overlap']['final_vs_serial']:.3g} from serial (bound "
+        f"0.05)")
+    del res
+
+    # (e) the refusals
+    main_argv = ["--env", "cheetah", "--algo", "ppo", "--num-samplers",
+                 str(n), "--global-batch", str(B), "--horizon", str(h),
+                 "--iterations", "1"]
+    for argv, err, words in (
+            (["--fsdp"], ValueError, "requires learner_devices > 1"),
+            (["--backend", "fused", "--learner-devices", "2"],
+             NotImplementedError, "item 10f")):
+        try:
+            cli(main_argv + argv)
+        except err as e:
+            assert words in str(e), e
+            log(f"  {' '.join(argv)}: {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"{argv} ran")
+    report["launches_checked"] = sorted(k for k in runs
+                                        if k.startswith("sharding "))
+    log(json.dumps({"sharding": report}))
     return report
 
 
@@ -3756,6 +4111,12 @@ def main(argv=None) -> int:
 
     phase_done("learner")
 
+    # slice 18: FSDP, learner pods, the sharded backend, overlap on a mesh
+    sharding_report = sharding_runs(cli, counted, runs, check_logs,
+                                    zero_counts, smi, sac_inline)
+
+    phase_done("sharding")
+
     # slice 14: half-precision obs and rewards through the env-step kernels
     dtype_runs(counted, runs, check_logs, zero_counts)
 
@@ -3871,6 +4232,7 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": serving_report}))
     log(json.dumps({"lm_train": lm_train_report}))
     log(json.dumps({"learner": learner_report}))
+    log(json.dumps({"sharding": sharding_report}))
     log(json.dumps({"launches_by_run": runs}))
     phase_done("timings")
     log(json.dumps({"phase_seconds": seconds}))

@@ -12,7 +12,8 @@ they name in ``learner_noise`` from the plane's generator.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Protocol, Tuple, runtime_checkable
+from typing import (Any, Callable, Dict, List, Protocol, Tuple,
+                    runtime_checkable)
 
 import torch
 
@@ -92,6 +93,13 @@ class AlgorithmBase:
 
     def make_rollout(self, env, horizon: int):
         return sampler_mod.make_algo_rollout(self, env, horizon)
+
+    def opt_groups(self, params) -> List[Any]:
+        """The parameter groups ``init``'s optimizer states follow, in the
+        states' order (a module, or a list of the params' tensors): one
+        state, over all of ``params``. The FSDP learner lays each state's
+        moments out as its group's params."""
+        return [params]
 
     def rollout_tail(self, params, final_obs) -> Dict[str, torch.Tensor]:
         return {}
@@ -287,6 +295,9 @@ class DDPGAlgorithm(OffPolicyAlgorithm):
                            hidden=self.hidden).to(device)
         return params, (self._a_opt.init(list(params.actor.parameters())),
                         self._c_opt.init(list(params.critic.parameters())))
+
+    def opt_groups(self, params):
+        return [params.actor, params.critic]
 
     def learn(self, params, opt_state, batch):
         return ddpg_update(params, opt_state, batch, self.cfg, self._a_opt,

@@ -200,6 +200,9 @@ class SACAlgorithm(OffPolicyAlgorithm):
                         self._c_opt.init(list(params.critic.parameters())),
                         self._al_opt.init([params.log_alpha]))
 
+    def opt_groups(self, params):
+        return [params.actor, params.critic, [params.log_alpha]]
+
     def learn(self, params, opt_state, batch):
         return sac_update(params, opt_state, batch, self.cfg, self._a_opt,
                           self._c_opt, self._al_opt)

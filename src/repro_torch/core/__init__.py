@@ -6,14 +6,14 @@ The entry point is ``repro_torch.experiment.run``; the names below keep the
 reference's imports (``from repro.core import SyncRunner, make_backend,
 ...``) working on the port. They load on first use, so a process that
 imports only ``core.ipc`` (a rollout worker, before it builds its rollout)
-does not import torch through this package. The reference's
-``ShardedBackend`` is not ported (ROADMAP.md).
+does not import torch through this package.
 """
 import importlib
 
 _EXPORTS = {
     "CollectStats": "backends", "InlineBackend": "backends",
     "ProcessBackend": "backends", "SamplerBackend": "backends",
+    "ShardedBackend": "backends",
     "ThreadedBackend": "backends", "make_backend": "backends",
     "FusedRunner": "fused", "TrainState": "fused",
     "make_fused_train_loop": "fused",

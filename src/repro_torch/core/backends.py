@@ -1,5 +1,5 @@
-"""Sampler backends (port of ``repro/core/backends.py``: inline, threaded
-and process; the sharded backend is in ROADMAP.md).
+"""Sampler backends (port of ``repro/core/backends.py``: inline, threaded,
+sharded and process).
 
 A backend owns the sampler carries and produces, per iteration, one merged
 trajectory plus per-sampler timing:
@@ -10,6 +10,11 @@ trajectory plus per-sampler timing:
 * ``ThreadedBackend`` — the same rollouts launched from one thread each,
   then joined. The rollout loop holds the GIL between launches, so little
   overlaps; every thread launches on the caller's current stream.
+* ``ShardedBackend``  — one sampler per mesh slice
+  (``sampler.make_sharded_rollout``): the global env batch split over the
+  mesh's devices, each shard's act and env step launched once a step, all
+  shards issued from the calling thread in lockstep; one time for the
+  whole sweep.
 * ``ProcessBackend``  — the paper's deployment: N worker processes, each
   rebuilt from a ``WorkerSpec`` on the run's device, fed through the
   shared-memory transport of ``core/ipc.py``. Trajectories merge in
@@ -155,6 +160,27 @@ class ThreadedBackend(BackendCloseMixin):
         self._pool.shutdown(wait=True)
 
 
+class ShardedBackend(BackendCloseMixin):
+    """One sampler per mesh slice via ``make_sharded_rollout``.
+
+    The carry (``sampler.ShardedCarry``) holds the global env batch split
+    over the mesh and the N samplers' generators; each collect's
+    trajectory comes back concatenated on the batch axis on the first mesh
+    device, with no host merge. One sweep covers all samplers, so
+    ``CollectStats`` carries one time, the sweep's."""
+
+    def __init__(self, sharded_rollout: Callable, carry: Any, mesh):
+        self.rollout = sharded_rollout
+        self.carry = carry
+        self.mesh = mesh
+        self.num_samplers = len(mesh)
+
+    def collect(self, params):
+        self.carry, traj, dt = timed_rollout(self.rollout, params,
+                                             self.carry)
+        return traj, CollectStats([dt], trajectory.num_samples(traj))
+
+
 class ProcessBackend(BackendCloseMixin):
     """N rollout worker processes behind the ``collect`` contract.
 
@@ -225,6 +251,36 @@ def _build_threaded(*, rollout: Callable, carries: List[Any], **_ignored):
     return ThreadedBackend(rollout, carries)
 
 
+def _build_sharded(*, carries: List[Any], env=None,
+                   horizon: Optional[int] = None, mesh=None, hooks=None,
+                   **_ignored):
+    """A mesh over every visible device of the carries' type
+    (``torch.cuda.device_count()``, or ``REPRO_TORCH_HOST_DEVICES`` on the
+    CPU) unless ``mesh`` (a list of devices) is given, one sampler per
+    device. ``hooks`` are the acting hooks the sharded loop runs (an
+    algorithm; default: the Gaussian-MLP policy's)."""
+    from repro_torch.core import sampler as sampler_mod
+    from repro_torch.launch.mesh import visible_devices
+    if env is None or horizon is None:
+        raise ValueError("the sharded backend needs env= and horizon= "
+                         "(it rebuilds the rollout loop over the mesh)")
+    batch = sum(c[1].shape[0] for c in carries)
+    if mesh is None:
+        device = carries[0][1].device
+        n = visible_devices(device.type)
+        if batch % n:
+            raise ValueError(
+                f"sharded backend: global env batch {batch} not divisible "
+                f"by the {n} available devices; adjust --global-batch or "
+                f"pass an explicit mesh")
+        mesh = ([torch.device("cpu")] * n if device.type == "cpu"
+                else [torch.device(device.type, i) for i in range(n)])
+    carry = sampler_mod.shard_carries(carries, mesh)
+    sharded = sampler_mod.make_sharded_rollout(
+        env, horizon, mesh, hooks or sampler_mod.MLPPolicyHooks)
+    return ShardedBackend(sharded, carry, mesh)
+
+
 def _build_process(*, worker_specs: Optional[Sequence[Any]] = None,
                    params: Any = None, device=None, fault_plan=None,
                    supervisor_cfg=None, **_ignored):
@@ -245,6 +301,7 @@ def _build_process(*, worker_specs: Optional[Sequence[Any]] = None,
 
 registry.register("backend", "inline", _build_inline)
 registry.register("backend", "threaded", _build_threaded)
+registry.register("backend", "sharded", _build_sharded)
 registry.register("backend", "process", _build_process)
 
 
@@ -253,9 +310,10 @@ def make_backend(kind: str, rollout: Callable = None,
                  horizon: Optional[int] = None, **kwargs):
     """The backend registered as ``kind`` (the reference's factory, over the
     registry's kind ``"backend"``): ``inline`` and ``threaded`` take the
-    per-sampler ``rollout`` and ``carries``; ``process`` takes
-    ``worker_specs``, ``params`` and ``device`` (and ``fault_plan``,
-    ``supervisor_cfg``) through ``kwargs``. The reference's ``mesh``
-    belongs to its sharded backend, which is not ported (ROADMAP.md)."""
+    per-sampler ``rollout`` and ``carries``; ``sharded`` takes
+    ``carries``, ``env``, ``horizon`` and optionally ``mesh`` and
+    ``hooks`` (the algorithm it acts through);
+    ``process`` takes ``worker_specs``, ``params`` and ``device`` (and
+    ``fault_plan``, ``supervisor_cfg``) through ``kwargs``."""
     return registry.make("backend", kind, rollout=rollout, carries=carries,
                          env=env, horizon=horizon, **kwargs)

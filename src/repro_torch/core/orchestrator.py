@@ -216,6 +216,18 @@ class SyncRunner(BackendCloseMixin):
     the params refreshed on the collect stream before the learn is issued:
     never the tensors the learn updates in place. The process backend
     publishes that copy to its workers.
+
+    Over a learner mesh (``distributed.learner.ShardedLearner`` of D
+    shards) the learner thread runs the shard steps: each shard issues on
+    its device's current stream, which on the learn's device is the
+    learner stream (on ``[cuda:0, cuda:0]`` both shards issue there), and
+    ``run_shards`` makes the learner stream wait for the shards of other
+    devices, so the ``done`` event is recorded after every shard's work.
+    The reference pins the params a collect reads to a device-0 copy
+    (``pin_params``) because its params live sharded across the mesh. The
+    port needs no such copy: the learner copies the full params back into
+    the caller's module after every step, FSDP or not, so ``self.params``
+    is always whole.
     """
 
     def __init__(self, backend, train_step: Callable, params: Any,

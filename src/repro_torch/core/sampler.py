@@ -15,8 +15,9 @@ body also runs on injected noise and candidates, which tests use.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -130,6 +131,135 @@ def make_env_rollout(env, horizon: int) -> Callable:
     ``(T, B, ...)`` and ``last_value`` ``(B,)``. Its step body is
     ``make_rollout_step(MLPPolicyHooks, ...)``."""
     return make_algo_rollout(MLPPolicyHooks, env, horizon)
+
+
+# ====================================================== sharded form
+class ShardedCarry(NamedTuple):
+    """The sharded backend's carry: the N samplers' generators and batch
+    sizes (sampler order), and each shard's slice of the global env batch
+    (``states[s]``, ``obs[s]``, on mesh device ``s``)."""
+    generators: List[torch.Generator]
+    batches: List[int]
+    states: List[Any]
+    obs: List[torch.Tensor]
+
+
+def shard_carries(carries: Sequence[Any], mesh) -> ShardedCarry:
+    """N samplers' carries ``(env_state, obs, generator)`` as one global
+    env batch in sampler order, split into ``len(mesh)`` contiguous shard
+    slices, each moved to its device."""
+    d = len(mesh)
+    batches = [c[1].shape[0] for c in carries]
+    total = sum(batches)
+    if total % d:
+        raise ValueError(f"sharded backend: global env batch {total} not "
+                         f"divisible by mesh data axis {d}")
+    states = [torch.cat(leaves) for leaves in zip(*(c[0] for c in carries))]
+    obs = torch.cat([c[1] for c in carries])
+    per = total // d
+    return ShardedCarry(
+        [c[2] for c in carries], batches,
+        [tuple(x[s * per:(s + 1) * per].to(mesh[s]) for x in states)
+         for s in range(d)],
+        [obs[s * per:(s + 1) * per].to(mesh[s]) for s in range(d)])
+
+
+def _pieces(batches: Sequence[int], d: int) -> List[List[tuple]]:
+    """Shard ``s``'s rows of the global batch as ``(sampler, lo, hi)``
+    pieces, in order."""
+    per = sum(batches) // d
+    starts = np.cumsum([0] + list(batches))
+    out = []
+    for s in range(d):
+        lo, hi = s * per, (s + 1) * per
+        out.append([(i, max(lo, starts[i]) - starts[i],
+                     min(hi, starts[i + 1]) - starts[i])
+                    for i in range(len(batches))
+                    if starts[i] < hi and starts[i + 1] > lo])
+    return out
+
+
+def make_sharded_rollout(env, horizon: int, mesh,
+                         hooks: Any = MLPPolicyHooks) -> Callable:
+    """One WALL-E sampler per mesh slice (the reference's ``shard_map``
+    form): ``sharded(params, carry, draws=None) -> (carry', traj)`` over a
+    ``ShardedCarry`` (``shard_carries``), one shard per entry of ``mesh``
+    (a list of devices, which may repeat one). The reference's
+    ``data_axes`` named the axis of its ``shard_map`` specs; the port has
+    no specs, so it has no such argument.
+
+    ``hooks`` are the acting hooks (an algorithm; default: the
+    Gaussian-MLP policy's, ``make_env_rollout``'s). The reference's carry
+    holds a key per env, so any split of the batch draws the same numbers;
+    the port's holds one generator per sampler, so each step
+
+    1. draws every sampler's action noise and reset candidates from that
+       sampler's own generator, in sampler order, with exactly the shapes
+       the inline rollout draws;
+    2. gives each shard its contiguous slice of the global batch;
+    3. runs the act and the env step (one kernel launch on the card) once
+       per shard, on the shard's device and its current stream, all shards
+       issued from the calling thread in lockstep (no collective runs, so
+       no shard threads).
+
+    ``draws`` replaces step 1 with ``horizon`` triples ``(action_noise,
+    reset_state, reset_obs)`` over the global batch, as
+    ``make_rollout_step`` takes them (tests feed the reference's draws).
+
+    Where each shard holds whole samplers' batches the act sees the rows
+    the inline rollout gives it, so the trajectory is the inline backend's
+    bit for bit where each shard holds one sampler's batch; elsewhere a
+    matmul over more rows may round otherwise. ``traj`` comes back
+    concatenated on the batch axis on the first mesh device: dim 1 of the
+    step rows, dim 0 of the leaves ``hooks.rollout_tail`` adds."""
+    step = make_rollout_step(hooks, env.batch_step)
+    devices = [torch.device(dv) for dv in mesh]
+    d = len(devices)
+
+    def cat(xs):
+        return xs[0] if len(xs) == 1 else torch.cat(xs)
+
+    def sharded(params, carry: ShardedCarry, draws=None):
+        batches = carry.batches if draws is None else [sum(carry.batches)]
+        pieces = _pieces(batches, d)
+        device0 = carry.obs[0].device
+        # the policy broadcast: a copy of the params on each other device
+        home = next(params.parameters()).device
+        copies = {dv: params if dv == home else copy.deepcopy(params).to(dv)
+                  for dv in set(devices)}
+        states, obs = list(carry.states), list(carry.obs)
+        rows = [[] for _ in range(d)]
+        with torch.no_grad():
+            for t in range(horizon):
+                if draws is None:
+                    drawn = []
+                    for g, b in zip(carry.generators, carry.batches):
+                        noise = torch.randn((b, env.act_dim), generator=g,
+                                            device=g.device)
+                        drawn.append((noise,) + env.reset(g, b, g.device))
+                else:
+                    drawn = [draws[t]]
+                for s, dv in enumerate(devices):
+                    part = [(drawn[i][0][lo:hi], tuple(
+                        x[lo:hi] for x in drawn[i][1]), drawn[i][2][lo:hi])
+                        for i, lo, hi in pieces[s]]
+                    noise = cat([p[0] for p in part]).to(dv)
+                    rs = tuple(cat(list(xs)).to(dv)
+                               for xs in zip(*(p[1] for p in part)))
+                    ro = cat([p[2] for p in part]).to(dv)
+                    states[s], obs[s], out = step(copies[dv], states[s],
+                                                  obs[s], noise, rs, ro)
+                    rows[s].append(out)
+            tails = [hooks.rollout_tail(copies[dv], obs[s])
+                     for s, dv in enumerate(devices)]
+        traj = {k: torch.cat([torch.stack([r[k] for r in rows[s]]).to(device0)
+                              for s in range(d)], dim=1)
+                for k in rows[0][0]}
+        traj.update({k: torch.cat([t[k].to(device0) for t in tails])
+                     for k in tails[0]})
+        return carry._replace(states=states, obs=obs), traj
+
+    return sharded
 
 
 # ============================================================== LM sampler

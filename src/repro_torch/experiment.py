@@ -11,19 +11,19 @@ it defaults to ``cuda`` and, with no CUDA device, raises rather than run on
 the CPU unasked.
 
 Ported so far: runtimes ``sync``, ``async`` and ``fused``, backends
-``inline``, ``threaded`` and ``process``, algos ``ppo``, ``trpo``, ``ddpg`` and
-``sac``, buffers ``fifo``, ``uniform`` and ``prioritized`` (with
-``buffer_kwargs``), envs ``pendulum``, ``cartpole`` and ``cheetah``, with
-``num_samplers × global_batch`` or ``env_batch`` collection; staleness
-correction, fault injection and elastic worker fleets; the overlap schedule
-(``schedule.overlap``: collect k+1 under learn k) on the sync and fused
-runtimes; the data-parallel learner (``learner_devices``,
-``learner_microbatches``: ``distributed/learner.py``), microbatched on
-every runtime and over D devices on the sync and async ones. Anything
-else is rejected with a message naming ROADMAP.md, never ignored: fsdp,
-learner pods, the sharded backend, D > 1 under the fused runtime and the
-overlap schedule over a learner mesh (the reference's ``offset=1`` mesh
-and ``pin_params``).
+``inline``, ``threaded``, ``sharded`` and ``process``, algos ``ppo``,
+``trpo``, ``ddpg`` and ``sac``, buffers ``fifo``, ``uniform`` and
+``prioritized`` (with ``buffer_kwargs``), envs ``pendulum``, ``cartpole``
+and ``cheetah``, with ``num_samplers × global_batch`` or ``env_batch``
+collection; staleness correction, fault injection and elastic worker
+fleets; the overlap schedule (``schedule.overlap``: collect k+1 under
+learn k) on the sync and fused runtimes; the data-parallel learner
+(``learner_devices``, ``learner_microbatches``, ``fsdp``,
+``learner_pods``: ``distributed/learner.py``), microbatched on every
+runtime and over D devices on the sync and async ones, with the
+reference's ``offset=1`` mesh under overlap. The one choice rejected
+with a message naming ROADMAP.md (item 10f) is D > 1 under the fused
+runtime.
 
 The actor plane: ``backend="process"`` (``schedule.num_workers`` workers,
 default ``num_samplers``) collects with worker processes, each rebuilt from
@@ -235,27 +235,44 @@ def _validate(spec: ExperimentSpec) -> None:
             "runtime's free-running samplers already overlap collect "
             "with learn by construction — drop overlap or use "
             "runtime='sync'")
-    # what of the distributed learner is not ported (ROADMAP.md item 10d),
+    if sched.env_batch is not None and spec.backend == "sharded":
+        raise ValueError(
+            f"schedule.env_batch selects vector collection (one VectorEnv "
+            f"batch, a single carry); backend must be 'inline' or "
+            f"'threaded' (got {spec.backend!r} — 'process'/'sharded' split "
+            f"the batch across samplers; use num_samplers × global_batch "
+            f"for those)")
+    # what of the distributed learner is not ported (ROADMAP.md item 10f),
     # refused before the device count and _validate_learner's ValueErrors
     devices = int(sched.learner_devices or 1)
-    if sched.fsdp or sched.learner_pods > 1:
-        raise _not_ported("fsdp / learner_pods (item 10d)")
     if devices > 1 and spec.runtime == "fused":
         raise _not_ported(
-            "learner_devices > 1 under runtime 'fused' (the shard threads "
-            "cannot share one graph capture; item 10d)")
-    if devices > 1 and sched.overlap:
-        raise _not_ported(
-            "the overlap schedule over a learner mesh (the reference's "
-            "offset=1 mesh and pin_params; item 10d)")
+            "learner_devices > 1 under runtime 'fused' (the D shard threads "
+            "and their replicated plane generators cannot be held by one "
+            "graph capture: one capture per shard, or one graph over D "
+            "streams joined by events; item 10f)")
 
 
 def _validate_learner(spec: ExperimentSpec, algo, sched: Schedule,
                       devices: int, vector: bool) -> None:
     """The reference's checks of the data-parallel learner, made before
     its mesh is built (``ValueError``)."""
+    if sched.fsdp and devices <= 1:
+        raise ValueError(
+            "schedule.fsdp shards params/opt-state across the learner "
+            "mesh; it requires learner_devices > 1 (a 1-device run has "
+            "nothing to shard — and stays on the bitwise single-device "
+            "path)")
+    if sched.learner_pods > 1 and devices <= 1:
+        raise ValueError(
+            "schedule.learner_pods splits the learner shards over a "
+            "(pod, data, model) mesh; it requires learner_devices > 1")
     if devices <= 1:
         return
+    if sched.learner_pods > 1 and devices % sched.learner_pods:
+        raise ValueError(
+            f"learner_pods={sched.learner_pods} must divide "
+            f"learner_devices={devices}")
     if not getattr(algo, "shardable", False):
         raise ValueError(
             f"algo {spec.algo!r} does not support learner_devices > 1 "
@@ -316,9 +333,12 @@ def build(spec: ExperimentSpec, device=None, mesh=None):
     generator on ``device`` seeded ``seed + _PLANE_SEED_TAG``.
 
     ``learner_devices > 1`` or ``learner_microbatches > 1`` selects the
-    data-parallel learner (``distributed.learner.ShardedLearner``) over
-    ``make_learner_mesh(learner_devices)``, or over ``mesh`` (a list of
+    data-parallel learner (``distributed.learner.ShardedLearner``, with
+    ``fsdp`` and ``learner_pods``) over ``make_learner_mesh(learner_devices,
+    learner_pods, offset)``, or over ``mesh`` (a list of
     ``learner_devices`` devices, which may repeat one) where it is given.
+    Under overlap the mesh starts at device 1 where there are devices to
+    spare (the reference's ``offset=1``).
     """
     _validate(spec)
     device = resolve_device(device)
@@ -346,10 +366,17 @@ def build(spec: ExperimentSpec, device=None, mesh=None):
         raise ValueError(f"a learner mesh of {len(mesh)} devices for "
                          f"learner_devices={devices}")
     if devices > 1 or micro > 1:
+        # under overlap the learner mesh starts at device 1 where devices
+        # allow, so the pipelined collect (device 0) and the learn run on
+        # different devices
+        offset = 1 if sched.overlap else 0
         if mesh is None and devices > 1:
-            mesh = make_learner_mesh(devices, device=device)
+            mesh = make_learner_mesh(devices, pods=sched.learner_pods,
+                                     offset=offset, device=device)
         learner = ShardedLearner(algo, buffer, num_devices=devices,
-                                 microbatches=micro, mesh=mesh)
+                                 microbatches=micro, mesh=mesh,
+                                 fsdp=sched.fsdp, pods=sched.learner_pods,
+                                 offset=offset)
         # the (sharded) wrapper allocates the plane below: per-shard rings
         # and trees on the mesh's devices
         buffer = learner.buffer
@@ -398,7 +425,8 @@ def build(spec: ExperimentSpec, device=None, mesh=None):
                                  rollout=rollout, carries=carries,
                                  **async_kwargs)
     backend = registry.make("backend", spec.backend, rollout=rollout,
-                            carries=carries)
+                            carries=carries, env=env, horizon=sched.horizon,
+                            hooks=algo)
     return SyncRunner(backend, train_step, params, opt_state,
                       plane_state=plane_state, overlap=sched.overlap)
 

@@ -31,7 +31,9 @@ Usage:
       --algo ppo --iterations 5 --ckpt-dir /tmp/ckpt [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
       --algo {ppo,sac,ddpg} [--learner-devices 2] \
-      [--learner-microbatches 2] [--device cpu]
+      [--learner-microbatches 2] [--fsdp] [--learner-pods 2] [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.train --env cheetah \
+      --backend sharded [--device cpu]
 
 ``--backend fused`` is the fused runtime: one carry of ``--global-batch``
 envs (or ``--env-batch``), each collect -> learn iteration one CUDA-graph
@@ -60,9 +62,16 @@ reference's ``repro.launch.serve_policy``.
 async runtimes; D lockstep shard threads of this process, gradients
 averaged across them, a sharded replay for SAC and DDPG), and
 ``--learner-microbatches M`` accumulates each loss's gradient over M
-slices of its batch (every runtime). On the CPU the environment variable
+slices of its batch (every runtime). ``--fsdp`` stores the params and
+Adam moments sharded across the D shards (the reference's ``_param_spec``
+layout), ``--learner-pods P`` lays the shards out as a ``(pod, data,
+model)`` mesh; both need D > 1. On the CPU the environment variable
 ``REPRO_TORCH_HOST_DEVICES`` sets how many learner devices may be asked
 for (default 1); on the card, ``torch.cuda.device_count()``.
+
+``--backend sharded`` collects with one sampler per visible device (the
+same variable on the CPU): the global env batch split over them, each
+shard's act and env step launched once a step.
 
 ``--overlap`` (sync and fused runtimes): after two serial iterations,
 iteration k+1's collect runs while iteration k's learn does, with the
@@ -143,6 +152,8 @@ def spec_from_args(args) -> ExperimentSpec:
             overlap=args.overlap,
             learner_devices=args.learner_devices,
             learner_microbatches=args.learner_microbatches,
+            fsdp=args.fsdp,
+            learner_pods=args.learner_pods,
             max_respawns=args.max_respawns,
             min_workers=args.min_workers,
             max_workers=args.max_workers,
@@ -289,6 +300,16 @@ def main(argv=None):
     ap.add_argument("--learner-microbatches", type=int, default=1,
                     help="gradient-accumulation slices per (per-shard) "
                          "learner batch")
+    ap.add_argument("--fsdp", action="store_true",
+                    help="shard params and Adam moments across the "
+                         "learner mesh per the _param_spec layout rules "
+                         "(per-layer all-gather + reduce-scattered grads; "
+                         "requires --learner-devices > 1 — DESIGN.md §11)")
+    ap.add_argument("--learner-pods", type=int, default=1,
+                    help="split the learner shards over a (pod, data, "
+                         "model) mesh — the multi-pod production axis "
+                         "names, so the same step lowers across the DCN "
+                         "boundary (must divide --learner-devices)")
     ap.add_argument("--overlap", action="store_true",
                     help="double-buffered pipeline: dispatch iteration "
                          "k's learn and run iteration k+1's collect "

@@ -27,6 +27,8 @@ from typing import (Any, Callable, List, NamedTuple, Optional, Sequence,
 
 import torch
 
+from repro_torch.distributed import grad_sync
+
 Schedule = Union[float, Callable[[torch.Tensor], torch.Tensor]]
 
 
@@ -76,7 +78,9 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
             v2 = b2 * v.float() + (1 - b2) * gf * gf
             delta = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
             if weight_decay:
-                delta = delta + weight_decay * p.detach().float()
+                pf = (grad_sync.localize_like(p.detach(), g)
+                      if grad_sync.fsdp_active() else p.detach())
+                delta = delta + weight_decay * pf.float()
             updates.append((-lr_t * delta).to(p.dtype))
             mu.append(m2.to(m.dtype))
             nu.append(v2.to(v.dtype))
@@ -88,7 +92,10 @@ def adam(lr: Schedule, b1: float = 0.9, b2: float = 0.999,
 def apply_updates(params: Sequence[torch.Tensor],
                   updates: Sequence[torch.Tensor]) -> None:
     """``p <- p + u`` for each parameter, in place, the update cast to the
-    parameter's dtype."""
+    parameter's dtype; under FSDP each update slice is all-gathered to its
+    parameter's full shape first."""
+    if grad_sync.fsdp_active() is not None:
+        updates = grad_sync.expand_like(list(updates), list(params))
     with torch.no_grad():
         for p, u in zip(params, updates):
             p.add_(u.to(p.dtype))

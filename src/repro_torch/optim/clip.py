@@ -5,10 +5,16 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed import grad_sync
+
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """The float32 norm of all leaves together: each leaf is upcast before
-    it is squared and summed, as the reference does."""
+    it is squared and summed, as the reference does. Under FSDP the
+    sharded leaves' square sums are added across the shards
+    (``grad_sync.fsdp_sumsq``)."""
+    if grad_sync.fsdp_active() is not None:
+        return torch.sqrt(grad_sync.fsdp_sumsq(tensors))
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tensors))
 

@@ -169,9 +169,9 @@ def test_add_launches_adds_to_the_wrappers_counts():
 
 
 def test_fused_runner_rejects_overlap_naming_the_roadmap():
-    """The fused runtime's overlap over a learner mesh (the reference's
-    ``offset=1`` mesh and ``pin_params``) waits for the distributed
-    learner: rejected by name."""
+    """The fused runtime over a learner mesh (here with overlap) waits
+    for ROADMAP.md item 10f, D > 1 under the fused runtime: rejected by
+    name."""
     spec = ExperimentSpec(env="pendulum", algo="ppo", runtime="fused",
                           schedule=Schedule(overlap=True, learner_devices=2))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -132,8 +132,16 @@ def test_learner_mesh_reads_the_host_device_count(host_devices):
     assert make_learner_mesh(4, device="cpu") == [torch.device("cpu")] * 4
     with pytest.raises(ValueError, match=f"{HOST_DEVICES_ENV}=8"):
         make_learner_mesh(8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_learner_mesh(4, pods=2, device="cpu")
+    pod = make_learner_mesh(4, pods=2, device="cpu")
+    assert pod == [torch.device("cpu")] * 4
+    assert pod.axis_names == ("pod", "data", "model")
+    assert pod.shape == {"pod": 2, "data": 2, "model": 1}
+    flat = make_learner_mesh(4, device="cpu")
+    assert flat.axis_names == ("data", "model")
+    assert flat.shape == {"data": 4, "model": 1}
+    with pytest.raises(ValueError, match="learner_pods=3 must divide "
+                                         "learner_devices=4"):
+        make_learner_mesh(4, pods=3, device="cpu")
 
 
 def test_learner_batch_must_divide_over_the_devices(host_devices):
@@ -144,13 +152,20 @@ def test_learner_batch_must_divide_over_the_devices(host_devices):
 
 @pytest.mark.parametrize("change", [
     dict(runtime="fused", schedule=Schedule(learner_devices=2)),
-    dict(schedule=Schedule(learner_devices=2, fsdp=True)),
-    dict(schedule=Schedule(learner_devices=2, learner_pods=2)),
-    dict(schedule=Schedule(overlap=True, learner_devices=2)),
-    dict(backend="sharded", schedule=Schedule(learner_devices=2)),
+    # (fsdp, learner pods, overlap over a learner mesh and the sharded
+    # backend run since item 10d: tests/test_torch_fsdp.py and
+    # tests/test_torch_sharded_backend.py; these cases name D > 1 under the
+    # fused runtime, item 10f, beside them)
+    dict(runtime="fused", schedule=Schedule(learner_devices=2, fsdp=True)),
+    dict(runtime="fused",
+         schedule=Schedule(learner_devices=2, learner_pods=2)),
+    dict(runtime="fused",
+         schedule=Schedule(overlap=True, learner_devices=2)),
+    dict(runtime="fused", schedule=Schedule(learner_devices=4, fsdp=True,
+                                            learner_pods=2)),
 ])
 def test_unported_learner_choices_name_the_roadmap(host_devices, change):
-    """What waits for item 10d is refused by name, before the device
+    """What waits for item 10f is refused by name, before the device
     count is read."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         experiment.build(ExperimentSpec(env="cheetah", **change),

@@ -20,7 +20,7 @@ from repro_torch.core.backends import SamplerBackend, make_backend
 from repro_torch.data.buffers import ExperienceBuffer
 
 # the reference's names that wait for an item of ROADMAP.md's queue 1
-NOT_PORTED = {"ShardedBackend"}           # item 10, the sharded learner
+NOT_PORTED = set()
 
 
 def test_walle_mlp_config_matches_the_reference():
@@ -67,10 +67,8 @@ def test_kernel_kind_resolves_each_family_to_its_ops(family, ops):
 
 
 def test_registry_kinds_cover_the_reference():
-    for kind in ("env", "algo", "buffer", "arch", "kernel"):
+    for kind in ("env", "algo", "buffer", "arch", "kernel", "backend"):
         assert registry.choices(kind) == jax_registry.choices(kind), kind
-    assert set(jax_registry.choices("backend")) - set(
-        registry.choices("backend")) == {"sharded"}      # item 10
 
 
 @pytest.mark.parametrize("module,jax_module", [
@@ -118,5 +116,6 @@ def test_make_backend_builds_a_collecting_backend(kind):
         assert callable(getattr(SamplerBackend, method)), method
     assert backend.num_samplers == 2 and stats.samples == 2 * 3 * 4
     assert traj["obs"].shape == (4, 6, env.obs_dim)
-    with pytest.raises(KeyError, match="sharded"):
+    # the reference's check of a missing env or horizon
+    with pytest.raises(ValueError, match="env= and horizon="):
         make_backend("sharded", None, [])

@@ -165,25 +165,30 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(runtime="fused",
          schedule=Schedule(overlap=True, learner_devices=2, fsdp=True)),
     # (async threads over D = 2, the process backend and the fused runtime
-    # at M = 2, and D = 2 on the sync runtime are accepted since the
-    # data-parallel learner: tests/test_torch_learner_plane.py and
-    # tests/test_torch_process_backend.py; each case here now names
-    # another choice that waits for ROADMAP.md item 10d)
-    dict(runtime="async", backend="threaded",
+    # at M = 2, D = 2 on the sync runtime, fsdp, learner pods, the sharded
+    # backend and overlap over a learner mesh are accepted since the
+    # distributed learner: tests/test_torch_learner_plane.py,
+    # tests/test_torch_fsdp.py, tests/test_torch_sharded_backend.py; each
+    # case here now names D > 1 under the fused runtime, ROADMAP.md item
+    # 10f, with another choice beside it)
+    dict(runtime="fused",
          schedule=Schedule(learner_devices=2, learner_pods=2)),
-    dict(backend="process",
-         schedule=Schedule(learner_microbatches=2, fsdp=True)),
-    dict(backend="threaded", schedule=Schedule(learner_pods=2)),
-    dict(backend="sharded"),
-    dict(schedule=Schedule(fsdp=True)),
-    dict(runtime="async", backend="process", schedule=Schedule(fsdp=True)),
+    dict(runtime="fused", schedule=Schedule(learner_devices=2, fsdp=True)),
+    dict(runtime="fused", algo="trpo",
+         schedule=Schedule(learner_devices=2)),
+    dict(runtime="fused", env="cartpole",
+         schedule=Schedule(learner_devices=2)),
+    dict(runtime="fused", algo="sac", buffer="prioritized",
+         schedule=Schedule(learner_devices=2)),
+    dict(runtime="fused", algo="ddpg", buffer="uniform",
+         schedule=Schedule(learner_devices=2)),
     # (aux_coef, refused here until the LM training slice, is accepted
     # now: tests/test_torch_lm_cli.py)
     dict(runtime="fused",
          schedule=Schedule(learner_microbatches=2, learner_devices=2)),
-    dict(backend="sharded", schedule=Schedule(learner_devices=2)),
-    # the reference's overlap over a learner mesh (offset=1, pin_params)
-    dict(schedule=Schedule(overlap=True, learner_devices=2)),
+    dict(runtime="fused", schedule=Schedule(learner_devices=4)),
+    dict(runtime="fused",
+         schedule=Schedule(learner_devices=2, env_batch=8)),
 ])
 def test_unported_choices_are_rejected(change):
     spec = ExperimentSpec(**{"env": "cheetah", **change})
@@ -269,7 +274,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 20
     # the learner plane's modules are scanned too
     assert {"grad_sync.py", "learner.py", "replay_sharded.py",
-            "mesh.py"} <= {f.name for f in files}
+            "mesh.py", "sharding.py"} <= {f.name for f in files}
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
